@@ -1,0 +1,90 @@
+"""flax parameter trees -> torch ``state_dict``.
+
+:func:`from_flax` reads the nested dicts of numpy arrays that
+``jax.device_get(init_variables(...))`` returns (``params`` and
+``batch_stats``) and yields the state dict of the port's module with the
+same names (module paths join with ``.``):
+
+- conv kernel HWIO -> OIHW; Dense kernel ``(in, out)`` -> ``(out, in)``;
+- LayerNorm ``scale/bias`` -> ``weight/bias``;
+- BatchNorm ``scale/bias`` and ``mean/var`` -> ``weight/bias`` and
+  ``running_mean/running_var`` (plus torch's ``num_batches_tracked``);
+- any other leaf (the ViT's ``cls_token``, ``pos_embedding``) as it is.
+
+It raises on a leaf it cannot place, on BatchNorm statistics without their
+module, and, given the target's state dict as ``like``, on any key that
+is missing, left over, or of another shape.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for name, sub in tree.items():
+        path = f"{prefix}{name}"
+        if isinstance(sub, Mapping):
+            out.update(_flatten(sub, path + "."))
+        else:
+            out[path] = sub
+    return out
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def from_flax(params: Mapping[str, Any],
+              batch_stats: Optional[Mapping[str, Any]] = None, *,
+              like: Optional[Mapping[str, torch.Tensor]] = None
+              ) -> Dict[str, torch.Tensor]:
+    flat = _flatten(params)
+    stats = _flatten(batch_stats or {})
+    bn_modules = {k.rsplit(".", 1)[0] for k in stats}
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaf in flat.items():
+        module, _, name = path.rpartition(".")
+        prefix = f"{module}." if module else ""
+        arr = np.asarray(leaf)
+        if name == "kernel":
+            if arr.ndim == 4:                  # conv HWIO -> OIHW
+                arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 2:                # Dense (in, out) -> (out, in)
+                arr = arr.T
+            else:
+                raise ValueError(f"from_flax: kernel {path} of rank "
+                                 f"{arr.ndim}; expected 2 (Dense) or 4 (Conv)")
+            sd[prefix + "weight"] = _tensor(arr)
+        elif name == "scale":                  # LayerNorm / BatchNorm
+            sd[prefix + "weight"] = _tensor(arr)
+        else:                                  # bias, cls_token, pos_embedding
+            sd[path] = _tensor(arr)
+    for module in sorted(bn_modules):
+        for flax_name, torch_name in (("mean", "running_mean"),
+                                      ("var", "running_var")):
+            key = f"{module}.{flax_name}"
+            if key not in stats:
+                raise ValueError(f"from_flax: batch_stats lacks {key}")
+            sd[f"{module}.{torch_name}"] = _tensor(stats.pop(key))
+        if f"{module}.weight" not in sd:
+            raise ValueError(f"from_flax: batch_stats for {module} but no "
+                             "BatchNorm scale in params")
+        sd[f"{module}.num_batches_tracked"] = torch.tensor(0)
+    if stats:
+        raise ValueError(f"from_flax: unconsumed batch_stats {sorted(stats)}")
+    if like is not None:
+        missing = sorted(set(like) - set(sd))
+        extra = sorted(set(sd) - set(like))
+        if missing or extra:
+            raise ValueError(f"from_flax: missing {missing}, unconsumed "
+                             f"{extra}")
+        for key, t in sd.items():
+            if tuple(t.shape) != tuple(like[key].shape):
+                raise ValueError(
+                    f"from_flax: {key} has shape {tuple(t.shape)}, the "
+                    f"target {tuple(like[key].shape)}")
+    return sd

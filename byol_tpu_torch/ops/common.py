@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernel library.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into ONE shared library with a plain C interface, which :mod:`ctypes`
+loads.  Nothing here includes PyTorch's headers, so a build takes seconds.
+
+- The build runs at first use (the first kernel launch on a CUDA tensor),
+  never at import: the CPU tests import every module of the package.
+- It writes into ``byol_tpu_torch/ops/_build/`` (listed in .gitignore),
+  under a name keyed by a hash of the sources and the flags, so an edited
+  source rebuilds and an unchanged one loads the cached library.
+- A file lock serialises concurrent builds (several processes starting at
+  once build once; the others wait and load).
+- Every C entry point returns ``cudaGetLastError()`` after its launch;
+  :func:`check` turns a nonzero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# seconds the nvcc run of this process took (0.0 when the cached library
+# was loaded); the path of its log holds what ptxas said of each kernel
+build_seconds = 0.0
+build_log: Optional[Path] = None
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the port's CUDA kernels are built from byol_tpu_torch/ops/"
+        "csrc/ at first use and need the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libbyol_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless a build of these exact sources exists."""
+    global build_seconds, build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        if out.exists():            # another process built it meanwhile
+            return out
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(s) for s in _sources() if s.suffix == ".cu")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        build_log = out.with_suffix(".log")
+        build_log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {proc.returncode}:\n"
+                f"{proc.stderr[-6000:]}")
+        os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed (thread-safe)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.byol_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.byol_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if err != 0:
+        msg = library().byol_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

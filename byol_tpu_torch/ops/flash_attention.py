@@ -1,0 +1,119 @@
+"""Flash attention: the Hopper kernel, its plain version, the wrapper.
+
+Counterpart of byol_tpu/ops/flash_attention.py (the Pallas ``_flash_kernel``
+for the TPU).  The CUDA kernel is ``csrc/flash_attention.cu``; its header
+states the bound at the serving shape and what the design does about it.
+
+- :func:`flash_attention_reference` is the plain PyTorch version of the same
+  function: fp32 scores, fp32 softmax, ``p`` cast to ``v``'s dtype, ``p.v``
+  accumulated in fp32, output in the input dtype.  The CPU tests run it, and
+  ``chip_smoke.py`` holds the kernel against it on the card.
+- :func:`flash_attention` dispatches on the device: a CPU tensor goes to the
+  plain version, a CUDA tensor to the kernel.  A build or launch failure
+  raises; nothing falls back.
+- :data:`LAUNCHES` counts kernel launches, so a run can show that its main
+  path went through the kernel.
+
+Forward only, as the reference (it defines no VJP): inputs that require a
+gradient are refused until the ViT training slice adds a backward.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from byol_tpu_torch.ops import common
+
+HEAD_DIMS = (32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+_MAX_GRID_Y = 65535          # batch * heads rides the grid's y dimension
+
+# kernel launches since the count was last set to 0 (only the wrapper's
+# launch adds to it)
+LAUNCHES = 0
+
+_ENTRY = "byol_flash_attention_fwd"
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, D) x3 -> (B, H, S, D), the kernel's function in PyTorch."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.softmax(scores, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention takes (B, H, S, D), got "
+                         f"{tuple(q.shape)}")
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"flash_attention: {name} {tuple(t.shape)} {t.dtype} on "
+                f"{t.device} does not match q {tuple(q.shape)} {q.dtype} on "
+                f"{q.device}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"flash_attention: dtype {q.dtype} not supported; "
+                         f"the kernel takes {DTYPES}")
+    b, h, s, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not supported; the "
+                         f"kernel takes {HEAD_DIMS}")
+    if s < 1 or b * h < 1 or b * h > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention: shape {tuple(q.shape)} out of "
+                         f"range (1 <= B*H <= {_MAX_GRID_Y}, S >= 1)")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the head dim must be contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward yet (the reference is forward "
+            "only); it comes with the ViT training slice in ROADMAP.md")
+
+
+def _rows_16b_aligned(t: torch.Tensor) -> bool:
+    elems = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(t.stride(i) % elems == 0 for i in range(3)))
+
+
+def _entry():
+    fn = getattr(common.library(), _ENTRY)
+    if fn.argtypes is None:          # declared once: pointers stay 64-bit
+        fn.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, D) x3 -> (B, H, S, D); same contract as dense_attention.
+
+    CUDA tensors launch the kernel (any (b, h, s) strides, contiguous head
+    dim); CPU tensors run :func:`flash_attention_reference`.  Both refuse
+    what the kernel does not take (dtype, head dim, gradients)."""
+    global LAUNCHES
+    _check(q, k, v)       # one input contract on both devices
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    b, h, s, d = q.shape
+    if q.dtype == torch.bfloat16:
+        # the bf16 kernel stages rows with 16-byte loads
+        q, k, v = (t if _rows_16b_aligned(t)
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
+    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   strides, b, h, s, d, int(q.dtype == torch.bfloat16),
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    common.check(err, "flash_attention")
+    LAUNCHES += 1
+    return out

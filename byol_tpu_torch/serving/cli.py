@@ -1,0 +1,175 @@
+"""``python -m byol_tpu_torch serve`` — stand up the embedding service.
+
+Counterpart of byol_tpu/serving/cli.py, with the same spellings for the
+flags it keeps.  Net-defining flags: --arch, --attn-impl, --pooling,
+--image-size-override, --half/--no-half, --normalize-inputs, --seed,
+--head-latent-size, --projection-size, --num-classes.  Serving knobs:
+
+    --min-bucket/--max-batch   the power-of-two bucket vocabulary
+    --max-queue           bounded-queue depth (backpressure past it)
+    --max-wait-ms         coalescing flush deadline
+    --pipeline off|on     worker dispatch pipelining (on)
+    --stats-interval      seconds between stats windows
+    --smoke N             drive N synthetic requests from --smoke-streams
+                          closed-loop client threads, print the stats line,
+                          and exit NONZERO when any request fails
+    --no-cuda             run on the CPU; without it a machine with no card
+                          exits nonzero (there is no silent CPU fallback)
+
+The encoder is random-init from --seed (embeddings are meaningless;
+compute is identical): ``--checkpoint`` needs an orbax reader free of JAX,
+and ``--http`` the wire front end, both later slices (ROADMAP.md).
+Without --smoke the process serves in-process until SIGTERM/SIGINT.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import List, Optional
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m byol_tpu_torch serve")
+    m = p.add_argument_group("model")
+    m.add_argument("--arch", type=str, default="resnet50")
+    m.add_argument("--attn-impl", type=str, default="dense",
+                   choices=("dense", "flash", "ring"),
+                   help="ViT attention backend")
+    m.add_argument("--pooling", type=str, default="cls",
+                   choices=("cls", "gap"), help="ViT feature pooling")
+    m.add_argument("--image-size-override", type=int, default=224)
+    m.add_argument("--projection-size", type=int, default=256)
+    m.add_argument("--head-latent-size", type=int, default=4096)
+    m.add_argument("--num-classes", type=int, default=10,
+                   help="probe-head width the weights trained with")
+    d = p.add_argument_group("device")
+    d.add_argument("--seed", type=int, default=1234)
+    d.add_argument("--half", action="store_true", default=True,
+                   help="bf16 compute policy")
+    d.add_argument("--no-half", dest="half", action="store_false")
+    d.add_argument("--normalize-inputs",
+                   action=argparse.BooleanOptionalAction, default=False,
+                   help="standardize pixels with the ImageNet mean/std")
+    d.add_argument("--no-cuda", action="store_true",
+                   help="run on the CPU")
+    s = p.add_argument_group("serving")
+    s.add_argument("--min-bucket", type=int, default=8,
+                   help="smallest pad-to bucket (power of two)")
+    s.add_argument("--max-batch", type=int, default=64,
+                   help="largest bucket = the coalescing ceiling "
+                        "(power of two)")
+    s.add_argument("--max-queue", type=int, default=256,
+                   help="bounded request queue depth; submits past it "
+                        "get backpressure")
+    s.add_argument("--max-wait-ms", type=float, default=5.0,
+                   help="coalescing flush deadline per batch")
+    s.add_argument("--pipeline", choices=("off", "on"), default="on",
+                   help="worker dispatch pipelining: 'on' lets the host "
+                        "prepare batch i+1 while the card computes batch i")
+    s.add_argument("--stats-interval", type=float, default=10.0,
+                   help="seconds between stats windows")
+    s.add_argument("--smoke", type=int, default=0,
+                   help="drive N synthetic requests through the service, "
+                        "print stats, exit nonzero on ANY failed request")
+    s.add_argument("--smoke-streams", type=int, default=4,
+                   help="concurrent client threads for --smoke")
+    return p
+
+
+def config_from_args(args: argparse.Namespace):
+    from byol_tpu_torch.core.config import (Config, DeviceConfig,
+                                            ModelConfig, ParityConfig,
+                                            TaskConfig)
+    return Config(
+        task=TaskConfig(image_size_override=args.image_size_override),
+        model=ModelConfig(arch=args.arch,
+                          projection_size=args.projection_size,
+                          head_latent_size=args.head_latent_size,
+                          attn_impl=args.attn_impl, pooling=args.pooling),
+        device=DeviceConfig(seed=args.seed, half=args.half),
+        parity=ParityConfig(normalize_inputs=args.normalize_inputs))
+
+
+def _smoke_rc(result, requested: int) -> int:
+    """ANY failed or missing request is a nonzero exit."""
+    return 0 if (result.failed == 0
+                 and result.completed == requested) else 1
+
+
+def _run_smoke_inproc(service, n_requests: int, n_streams: int, *,
+                      seed: int = 0, timeout_s: float = 600.0):
+    """Closed-loop smoke through the in-process submit() path."""
+    from byol_tpu_torch.serving.net.loadgen import run_closed_loop
+
+    return run_closed_loop(
+        lambda idx, img: service.embed(img, timeout=timeout_s),
+        service.engine.input_shape, n_requests, n_streams, seed=seed)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_serve_parser().parse_args(argv)
+    import signal
+    import threading
+
+    from byol_tpu_torch.core.preflight import resolve_device
+    from byol_tpu_torch.serving.meter import serve_log_line
+    from byol_tpu_torch.serving.service import ServeConfig, build_service
+
+    try:
+        device = resolve_device(args.no_cuda)
+    except RuntimeError as e:
+        print(f"byol_tpu_torch serve: {e}", file=sys.stderr)
+        return 2
+    cfg = config_from_args(args)
+    serve_cfg = ServeConfig(
+        min_bucket=args.min_bucket, max_bucket=args.max_batch,
+        max_queue=args.max_queue, max_wait_ms=args.max_wait_ms,
+        num_classes=args.num_classes,
+        stats_interval_s=args.stats_interval,
+        pipeline=args.pipeline)
+    try:
+        service = build_service(cfg, serve_cfg, device=device)
+    except (ValueError, NotImplementedError) as e:
+        print(f"byol_tpu_torch serve: {e}", file=sys.stderr)
+        return 2
+    print("serve: serving a RANDOM-init encoder from --seed (embeddings are "
+          "meaningless; smoke/bench only)", file=sys.stderr)
+    t0 = time.perf_counter()
+    service.start()              # warmup: every bucket runs once
+    print(f"serve: warm — {service.engine.compile_count} bucket shape(s) "
+          f"{list(service.engine.buckets.sizes)} in "
+          f"{time.perf_counter() - t0:.1f}s on {device}; accepting requests "
+          f"({service.engine.describe()})")
+
+    if args.smoke:
+        res = _run_smoke_inproc(service, args.smoke, args.smoke_streams,
+                                seed=cfg.device.seed)
+        # read the window BEFORE stop(): its final stats emit resets it
+        snap = service.meter.snapshot(time.perf_counter(), reset=False)
+        service.stop()
+        print(serve_log_line(snap))
+        print(res.summary(), file=sys.stderr)
+        return _smoke_rc(res, args.smoke)
+
+    # long-running mode: the worker serves; this thread flushes stats
+    # windows until SIGTERM/SIGINT starts the drain
+    stop_signal = threading.Event()
+
+    def _on_signal(signum, frame):  # noqa: ARG001 — handler contract
+        stop_signal.set()
+
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+    try:
+        while not stop_signal.wait(serve_cfg.stats_interval_s):
+            service._emit_stats(force=True)
+    finally:
+        service.stop()
+        print("serve: drained — every accepted request resolved",
+              file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
