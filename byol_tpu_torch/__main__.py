@@ -1,8 +1,5 @@
-"""``python -m byol_tpu_torch serve ...`` — the port's entry point.
-
-Only the ``serve`` subcommand exists in this slice; training comes later
-(ROADMAP.md).
-"""
+"""``python -m byol_tpu_torch [serve] ...``: train by default, serve as a
+subcommand (as ``python -m byol_tpu``)."""
 import sys
 
 
@@ -11,9 +8,8 @@ def main() -> int:
     if argv and argv[0] == "serve":
         from byol_tpu_torch.serving.cli import main as serve_main
         return serve_main(argv[1:])
-    print("usage: python -m byol_tpu_torch serve [flags]  (training is not "
-          "ported yet; see ROADMAP.md)", file=sys.stderr)
-    return 2
+    from byol_tpu_torch.cli import main as train_main
+    return train_main(argv)
 
 
 if __name__ == "__main__":

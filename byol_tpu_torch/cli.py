@@ -1,0 +1,86 @@
+"""``python -m byol_tpu_torch [flags]``: BYOL pretraining (counterpart of
+byol_tpu/cli.py).  The flags keep the JAX package's spellings and defaults;
+this slice reads the ones below, the rest of the JAX surface comes later
+(ROADMAP.md, section 1 item 15).
+
+It runs on the card unless ``--no-cuda`` asks for the CPU; with no card and
+no ``--no-cuda`` it exits 2 before building anything.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional
+
+from byol_tpu_torch.core.config import (Config, DeviceConfig, ModelConfig,
+                                        OptimConfig, RegularizerConfig,
+                                        TaskConfig)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m byol_tpu_torch",
+        description="BYOL pretraining on one CUDA card (PyTorch port)")
+    p.add_argument("--task", type=str, default="image_folder",
+                   help="dataset; this slice ports 'fake' and 'synth'")
+    p.add_argument("--batch-size", type=int, default=4096)
+    p.add_argument("--epochs", type=int, default=3000)
+    p.add_argument("--image-size-override", type=int, default=224)
+    p.add_argument("--arch", type=str, default="resnet50")
+    p.add_argument("--projection-size", type=int, default=256)
+    p.add_argument("--head-latent-size", type=int, default=4096)
+    p.add_argument("--base-decay", type=float, default=0.996)
+    p.add_argument("--weight-decay", type=float, default=1e-6)
+    p.add_argument("--lr", type=float, default=0.2)
+    p.add_argument("--warmup", type=int, default=10, help="warmup epochs")
+    p.add_argument("--fused-update", type=str, default="off",
+                   choices=("off", "on"),
+                   help="'on': the LARS+EMA update runs as the fused "
+                        "kernels K1a + K1b (ops/fused_update.py)")
+    p.add_argument("--debug-step", action="store_true",
+                   help="one minibatch per epoch")
+    p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--half", action="store_true", default=True,
+                   help="bf16 compute (the default)")
+    p.add_argument("--no-half", dest="half", action="store_false")
+    p.add_argument("--no-cuda", action="store_true",
+                   help="run on the CPU")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    return Config(
+        task=TaskConfig(task=args.task, batch_size=args.batch_size,
+                        epochs=args.epochs,
+                        image_size_override=args.image_size_override),
+        model=ModelConfig(arch=args.arch,
+                          projection_size=args.projection_size,
+                          head_latent_size=args.head_latent_size,
+                          base_decay=args.base_decay),
+        regularizer=RegularizerConfig(weight_decay=args.weight_decay),
+        optim=OptimConfig(lr=args.lr, warmup=args.warmup,
+                          fused_update=args.fused_update),
+        device=DeviceConfig(debug_step=args.debug_step, seed=args.seed,
+                            half=args.half))
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    from byol_tpu_torch.core.preflight import resolve_device
+    try:
+        device = resolve_device(args.no_cuda)
+    except RuntimeError as e:
+        print(f"byol_tpu_torch: {e}", file=sys.stderr)
+        return 2
+    cfg = config_from_args(args)
+    from byol_tpu_torch.training.trainer import fit
+    try:
+        result = fit(cfg, device=device)
+    except (ValueError, NotImplementedError) as e:
+        print(f"byol_tpu_torch: {e}", file=sys.stderr)
+        return 2
+    print(f"done: epoch {result.epoch}, test loss "
+          f"{result.test_metrics.get('loss_mean', float('nan')):.4f}, "
+          f"{result.step_ms:.1f} ms/step, {result.images_per_sec:.1f} img/s "
+          f"on {device}", flush=True)
+    return 0

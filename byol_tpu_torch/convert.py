@@ -5,19 +5,25 @@
 ``batch_stats``) and yields the state dict of the port's module with the
 same names (module paths join with ``.``):
 
-- conv kernel HWIO -> OIHW; Dense kernel ``(in, out)`` -> ``(out, in)``;
+- conv kernel HWIO -> OIHW (the ResNet convs have no bias); Dense kernel
+  ``(in, out)`` -> ``(out, in)``;
 - LayerNorm ``scale/bias`` -> ``weight/bias``;
 - BatchNorm ``scale/bias`` and ``mean/var`` -> ``weight/bias`` and
-  ``running_mean/running_var`` (plus torch's ``num_batches_tracked``);
+  ``running_mean/running_var``;
 - any other leaf (the ViT's ``cls_token``, ``pos_embedding``) as it is.
 
 It raises on a leaf it cannot place, on BatchNorm statistics without their
 module, and, given the target's state dict as ``like``, on any key that
 is missing, left over, or of another shape.
+
+:func:`train_state_from_flax` carries a whole JAX ``TrainState`` across
+(params, BN statistics, EMA target, LARS momentum trace, schedule count,
+``step`` and ``ema_step``), given as numpy nested dicts and ints: the
+caller unpacks the optax state, so nothing here needs optax.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,7 +79,6 @@ def from_flax(params: Mapping[str, Any],
         if f"{module}.weight" not in sd:
             raise ValueError(f"from_flax: batch_stats for {module} but no "
                              "BatchNorm scale in params")
-        sd[f"{module}.num_batches_tracked"] = torch.tensor(0)
     if stats:
         raise ValueError(f"from_flax: unconsumed batch_stats {sorted(stats)}")
     if like is not None:
@@ -88,3 +93,43 @@ def from_flax(params: Mapping[str, Any],
                     f"from_flax: {key} has shape {tuple(t.shape)}, the "
                     f"target {tuple(like[key].shape)}")
     return sd
+
+
+def _split_params_and_buffers(
+        sd: Mapping[str, torch.Tensor]
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """A converted state dict -> (parameters, BatchNorm running stats)."""
+    stats = ("running_mean", "running_var")
+    params = {k: v for k, v in sd.items() if k.rsplit(".", 1)[-1]
+              not in stats}
+    buffers = {k: v for k, v in sd.items() if k not in params}
+    return params, buffers
+
+
+def train_state_from_flax(state: Mapping[str, Any], *,
+                          like: Optional[Mapping[str, torch.Tensor]] = None
+                          ) -> Dict[str, Any]:
+    """A JAX ``TrainState`` as numpy -> the port's train-state contents.
+
+    ``state`` holds ``params``, ``batch_stats``, ``target_params`` and
+    ``momentum`` (the LARS trace tree, which has the params' structure) as
+    nested dicts, and ``count`` (the schedule count), ``step`` and
+    ``ema_step`` as ints.  Returns ``params``, ``target``, ``momentum``
+    (torch-named parameter dicts, converted like the params), ``buffers``
+    (the running statistics) and the three counters as Python ints.
+    ``like`` (the online net's state dict) checks every key and shape.
+    """
+    online = from_flax(state["params"], state.get("batch_stats"), like=like)
+    params, buffers = _split_params_and_buffers(online)
+    out: Dict[str, Any] = {"params": params, "buffers": buffers}
+    for key, name in (("target_params", "target"), ("momentum", "momentum")):
+        tree = from_flax(state[key])
+        if set(tree) != set(params):
+            raise ValueError(
+                f"train_state_from_flax: {key} does not have the params' "
+                f"structure (differs at "
+                f"{sorted(set(tree) ^ set(params))[:4]})")
+        out[name] = tree
+    for key in ("count", "step", "ema_step"):
+        out[key] = int(state[key])
+    return out

@@ -1,10 +1,10 @@
 """Projector / predictor MLP heads and the linear probe.
 
 Counterpart of byol_tpu/models/heads.py: ``Dense(in -> hidden) ->
-BatchNorm1d -> ReLU -> Dense(hidden -> out)``.  flax's BatchNorm momentum
-0.9 is torch's momentum 0.1 (torch weighs the NEW statistic by it); eps is
-1e-5 in both.  As in flax, the BatchNorm computes in float32 (its output
-type promotes to its float32 parameters).
+BatchNorm -> ReLU -> Dense(hidden -> out)``, with the flax-semantics
+:class:`~byol_tpu_torch.models.layers.BatchNorm` (momentum 0.9 as flax
+counts it, eps 1e-5, the biased variance in the running update, float32
+statistics and output).
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from byol_tpu_torch.models.layers import Dense
+from byol_tpu_torch.models.layers import BatchNorm, Dense
 
 
 class MLPHead(nn.Module):
@@ -22,12 +22,11 @@ class MLPHead(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.dense1 = Dense(in_features, hidden_size, dtype)
-        self.bn = nn.BatchNorm1d(hidden_size, eps=1e-5,
-                                 momentum=1.0 - bn_momentum)
+        self.bn = BatchNorm(hidden_size, momentum=bn_momentum)
         self.dense2 = Dense(hidden_size, output_size, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn(self.dense1(x).float()))
+        x = F.relu(self.bn(self.dense1(x)))
         return self.dense2(x).to(self.dtype)
 
 

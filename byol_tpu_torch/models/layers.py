@@ -7,9 +7,15 @@
   them at every use.
 - :class:`LayerNorm` has flax's eps 1e-6 (torch's default is 1e-5) and
   computes in float32 under a lower compute dtype.
-- :func:`init_params` draws flax's default initializers (lecun_normal
-  kernels, zero biases, unit LayerNorm/BatchNorm scales) from an explicit
-  ``torch.Generator``: the same distributions, not the same bits.
+- :class:`BatchNorm` has flax's semantics, not torch's: statistics in
+  float32, momentum 0.9 as flax counts it (torch's 0.1), eps 1e-5, the
+  BIASED batch variance in the running update (torch's own update uses the
+  unbiased one), and a switch that normalises with batch statistics
+  without updating the running ones (the target network's forward).
+- :func:`init_params` draws flax's initializers (lecun_normal kernels, or
+  he_normal for the ResNet convs; zero biases; unit LayerNorm/BatchNorm
+  scales, or zero where a block's last BN is zero-initialised) from an
+  explicit ``torch.Generator``: the same distributions, not the same bits.
 """
 from __future__ import annotations
 
@@ -41,20 +47,27 @@ class Dense(nn.Linear):
 
 
 class Conv(nn.Conv2d):
-    """``nn.Conv`` with VALID padding on an NCHW tensor."""
+    """``nn.Conv`` on an NCHW tensor: symmetric explicit ``padding`` (0 is
+    flax's VALID, and its SAME for the ResNet's 1x1 convs), an optional
+    bias, and the flax initializer named by ``kernel_init``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
-                 stride: int, dtype: torch.dtype = torch.float32) -> None:
-        super().__init__(in_channels, out_channels, kernel, stride=stride)
+                 stride: int, dtype: torch.dtype = torch.float32, *,
+                 padding: int = 0, use_bias: bool = True,
+                 kernel_init: str = "lecun_normal") -> None:
+        super().__init__(in_channels, out_channels, kernel, stride=stride,
+                         padding=padding, bias=use_bias)
         self.dtype = dtype
+        self.kernel_init = kernel_init
 
     def reset_parameters(self) -> None:   # init_params draws them
         pass
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        stride=self.stride)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias,
+                        stride=self.stride, padding=self.padding)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -69,11 +82,73 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(self.dtype)
 
 
-def _lecun_normal_(w: torch.Tensor, fan_in: int,
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over dim 1 of an (N, C, ...) tensor.
+
+    - Train mode normalises with the batch statistics (biased variance) and,
+      when ``update_stats`` is set, moves the running statistics by
+      ``new = momentum * old + (1 - momentum) * batch`` with the BIASED
+      batch variance, in place.  ``update_stats=False`` is the target
+      network's forward: batch statistics, running statistics untouched.
+    - Eval mode normalises with the running statistics.
+    - Statistics and the output are float32 whatever the input dtype (flax
+      promotes a bf16 input against its float32 scale).
+    """
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, zero_init: bool = False) -> None:
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.zero_init = zero_init            # init_params: scale 0, not 1
+        self.update_stats = True
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(0.0 if self.zero_init else 1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0,
+                                self.eps)
+        if not self.update_stats:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                                0.0, self.eps)
+        # torch's batch_norm moves running stats with the UNBIASED variance;
+        # with momentum 1 into scratch buffers it hands back the batch mean
+        # and unbiased variance exactly, and the biased one is n-1/n of it
+        n = x.numel() // x.shape[1]
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
+        return y
+
+
+def _trunc_normal_(w: torch.Tensor, scale: float, fan_in: int,
                    generator: torch.Generator) -> None:
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    """flax ``variance_scaling(scale, 'fan_in', 'truncated_normal')``."""
+    std = math.sqrt(scale / fan_in) / _TRUNC_STD
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                           generator=generator)
+
+
+_KERNEL_INIT_SCALE = {"lecun_normal": 1.0, "he_normal": 2.0}
+
+
+def he_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax ``he_normal`` on an (out, in, kh, kw) kernel."""
+    _trunc_normal_(w, 2.0, w[0].numel(), generator)
 
 
 @torch.no_grad()
@@ -83,9 +158,13 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
     and position embedding) define ``init_own_params(generator)``."""
     for m in module.modules():
         if isinstance(m, (Dense, Conv)):
-            _lecun_normal_(m.weight, m.weight[0].numel(), generator)
-            m.bias.zero_()
-        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
+            # fan_in = kh * kw * cin for a conv, in for a Dense
+            scale = _KERNEL_INIT_SCALE[getattr(m, "kernel_init",
+                                               "lecun_normal")]
+            _trunc_normal_(m.weight, scale, m.weight[0].numel(), generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, BatchNorm)):
             m.reset_parameters()
         if hasattr(m, "init_own_params"):
             m.init_own_params(generator)

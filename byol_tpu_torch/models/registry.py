@@ -1,8 +1,8 @@
 """Backbone registry (counterpart of byol_tpu/models/registry.py).
 
 Each entry yields a module whose ``forward(x)`` maps NHWC images to pooled
-features, its feature dimension, and whether it holds BatchNorm.  The ViTs
-are ported; the ResNets are named here so that asking for one says so.
+features, its feature dimension, and whether it holds BatchNorm: the
+ResNets (every name of the JAX registry) and the ViTs.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import nn
 
-# the JAX registry's ResNet names: not ported yet (ROADMAP.md, queue 1)
+# the JAX registry's ResNet names
 RESNETS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
            "resnet200", "resnet50w2", "resnet200w2", "wide_resnet50_2",
            "wide_resnet101_2")
@@ -39,11 +39,6 @@ def available() -> Tuple[str, ...]:
 
 
 def get_spec(name: str) -> BackboneSpec:
-    if name in RESNETS:
-        raise ValueError(
-            f"arch {name!r} is not yet ported to byol_tpu_torch (the ResNet "
-            "backbones come with the training slice; see ROADMAP.md); "
-            f"ported: {available()}")
     if name not in _REGISTRY:
         raise ValueError(f"unknown arch {name!r}; available: {available()}")
     return _REGISTRY[name]
@@ -54,6 +49,19 @@ def get_backbone(name: str, *, dtype=torch.float32, image_size: int = 224,
     spec = get_spec(name)
     return (spec.factory(dtype=dtype, image_size=image_size, **kwargs),
             spec.feature_dim)
+
+
+def _register_resnets() -> None:
+    from byol_tpu_torch.models import resnet as resnet_lib
+    for name in RESNETS:
+        def factory(dtype=torch.float32, image_size=224, _n=name, **kw):
+            # kw passes the ResNet knobs through: small_inputs,
+            # zero_init_residual, stem (the input size is free)
+            del image_size
+            return resnet_lib.make_resnet(_n, dtype=dtype, **kw)
+        register(name, BackboneSpec(
+            factory=factory,
+            feature_dim=resnet_lib.feature_dim(name)))
 
 
 def _register_vit() -> None:
@@ -72,4 +80,5 @@ def _register_vit() -> None:
                                     has_batchnorm=False))
 
 
+_register_resnets()
 _register_vit()

@@ -226,10 +226,13 @@ class ServeConfig:
 
 def _serving_rcfg(cfg, num_classes: int):
     """Resolve a Config without a loader: serving knows its input contract
-    from the config alone (image size, channels, probe width)."""
+    from the config alone (image size, channels, probe width).  The sample
+    counts only have to satisfy resolve()'s divisibility checks."""
     from byol_tpu_torch.core.config import resolve
     size = cfg.task.image_size_override or 224
-    return resolve(cfg, output_size=num_classes, input_shape=(size, size, 3))
+    return resolve(cfg, num_train_samples=cfg.task.batch_size,
+                   num_test_samples=cfg.task.batch_size,
+                   output_size=num_classes, input_shape=(size, size, 3))
 
 
 def build_service(cfg, serve_cfg: ServeConfig, *,

@@ -1,28 +1,37 @@
-"""Wiring: resolved config -> net (counterpart of byol_tpu/training/build.py,
-the part the serve path uses)."""
+"""Wiring: resolved config -> net, train state, steps (counterpart of
+byol_tpu/training/build.py), on one device: no mesh and no compile plan."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from byol_tpu_torch.core.config import ResolvedConfig
 from byol_tpu_torch.core.precision import get_policy
+from byol_tpu_torch.core.rng import split_named
 from byol_tpu_torch.models.byol_net import BYOLNet, build_byol_net
 from byol_tpu_torch.models.registry import get_spec
+from byol_tpu_torch.optim.factory import build_optimizer
+from byol_tpu_torch.training.state import TrainState, create_train_state
+from byol_tpu_torch.training.steps import (StepConfig, make_eval_step,
+                                           make_train_step)
 
 
 def build_net(rcfg: ResolvedConfig,
               generator: Optional[torch.Generator] = None) -> BYOLNet:
     """The BYOL net on the CPU, its weights drawn from ``generator``
-    (default: one seeded with ``cfg.device.seed``)."""
+    (default: the ``params`` stream of ``cfg.device.seed``).  Inputs of at
+    most 64 px get the CIFAR stem, as in the JAX package."""
     cfg = rcfg.cfg
-    extra = {}
-    if not get_spec(cfg.model.arch).has_batchnorm:   # ViT-family knobs
+    if get_spec(cfg.model.arch).has_batchnorm:
+        extra = {"small_inputs": rcfg.input_shape[0] <= 64,
+                 "zero_init_residual": cfg.parity.zero_init_residual,
+                 "stem": cfg.model.stem}
+    else:                                        # ViT-family knobs
         extra = {"attn_impl": cfg.model.attn_impl,
                  "pooling": cfg.model.pooling}
     if generator is None:
-        generator = torch.Generator().manual_seed(cfg.device.seed)
+        generator = split_named(cfg.device.seed, ("params",))["params"]
     return build_byol_net(
         cfg.model.arch,
         num_classes=rcfg.output_size,
@@ -32,3 +41,62 @@ def build_net(rcfg: ResolvedConfig,
         image_size=rcfg.input_shape[0],
         generator=generator,
         **extra)
+
+
+def build_tx(rcfg: ResolvedConfig):
+    """The lars_momentum chain and its lr schedule: warmup in epochs,
+    step-granular by default, the epoch staircase under
+    ``schedule_granularity='epoch'``."""
+    cfg = rcfg.cfg
+    epoch_granular = cfg.parity.schedule_granularity == "epoch"
+    return build_optimizer(
+        cfg.optim.optimizer,
+        base_lr=cfg.optim.lr,
+        global_batch_size=rcfg.global_batch_size,
+        weight_decay=cfg.regularizer.weight_decay,
+        total_units=(cfg.task.epochs if epoch_granular
+                     else rcfg.total_train_steps),
+        warmup_units=(cfg.optim.warmup if epoch_granular
+                      else cfg.optim.warmup * rcfg.steps_per_train_epoch),
+        lr_schedule_kind=cfg.optim.lr_update_schedule,
+        steps_per_epoch=(rcfg.steps_per_train_epoch if epoch_granular
+                         else None),
+        clip=cfg.optim.clip)
+
+
+def step_config(rcfg: ResolvedConfig) -> StepConfig:
+    cfg = rcfg.cfg
+    base_decay = cfg.model.base_decay
+    ref_b = cfg.model.ema_scaling_reference_batch
+    if ref_b > 0:
+        # EMA scaling rule (arXiv 2307.13813): tau -> tau^kappa
+        base_decay = float(base_decay ** (rcfg.global_batch_size / ref_b))
+    return StepConfig(
+        total_train_steps=rcfg.total_train_steps,
+        base_decay=base_decay,
+        norm_mode=cfg.parity.loss_norm_mode,
+        fuse_views=cfg.model.fuse_views,
+        ema_update_mode=cfg.parity.ema_update_mode,
+        normalize_inputs=cfg.parity.normalize_inputs,
+        fused_update=cfg.optim.fused_update == "on")
+
+
+def setup_training(rcfg: ResolvedConfig, device,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[BYOLNet, TrainState, Callable, Callable,
+                              Callable[[int], float]]:
+    """Returns (net, state, train_step, eval_step, lr_schedule): the net
+    built on ``device`` and flattened into the train state."""
+    cfg = rcfg.cfg
+    if cfg.model.weight_initialization:
+        raise NotImplementedError(
+            "--weight-initialization is not ported to byol_tpu_torch yet "
+            "(ROADMAP.md, section 1 item 6)")
+    policy = get_policy(cfg.device.half)
+    net = build_net(rcfg, generator).to(device)
+    state = create_train_state(net, ema_init_mode=cfg.parity.ema_init_mode,
+                               polyak_ema=cfg.regularizer.polyak_ema)
+    tx, schedule = build_tx(rcfg)
+    scfg = step_config(rcfg)
+    return (net, state, make_train_step(tx, scfg, schedule, policy),
+            make_eval_step(scfg, policy), schedule)

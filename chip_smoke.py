@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive byol_tpu_torch's serving path once on one CUDA card, and check it.
+"""Drive byol_tpu_torch's serving and training paths once on one CUDA card,
+and check them.
 
     python3 chip_smoke.py            # from the repository root; one card
 
@@ -8,24 +9,40 @@ Phases (any failure raises, and the script exits nonzero):
 1. device  — a CUDA card is required; prints its name and power limit
    (nvidia-smi) and turns TF32 off for the comparisons;
 2. build   — nvcc builds the kernel library from byol_tpu_torch/ops/csrc/;
-3. kernels — each kernel of the path, at the shapes the path gives it, is
-   held against its plain PyTorch version on the same inputs (fp32 1e-5,
-   bf16 2e-2) and timed with CUDA events beside the plain version, one
-   PyTorch library call of the same function (a yardstick the port never
-   calls) and its bound: the larger of bytes / 3.35 TB/s and operations /
-   peak rate (989 TFLOP/s bf16, 67 TFLOP/s fp32 off the tensor cores);
-4. slice   — serves ViT-B/16 (224 px, bf16, attn_impl='flash', random
-   weights from the seed, buckets 8..64) through ``build_service``:
-   warmup, then 48 closed-loop requests from 3 streams with every launch
-   counter set to 0 just before and read just after; every embedding must
-   be (1, 768) and finite, no bucket may warm again, and the flash kernel
-   must have launched 12 times per served batch.  One bucket-8 batch is
-   held against the same weights with attn_impl='dense' (bf16, rtol = atol
-   = 3e-2: bf16 rounds the scores and probabilities at other points);
-5. prints the ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
+3. kernels — each kernel, at the shapes its path gives it, is held against
+   its plain PyTorch version on the same inputs and timed with CUDA events
+   beside the plain version, one PyTorch library call of the same function
+   where there is one (a yardstick the port never calls) and its bound: the
+   larger of bytes / 3.35 TB/s and operations / peak rate (989 TFLOP/s
+   bf16, 67 TFLOP/s fp32 off the tensor cores).  Flash attention (K3):
+   fp32 1e-5, bf16 2e-2.  The fused LARS+EMA update (K1a segment norms, K1b
+   fused apply) at the ResNet-50 BYOL segment layout (173 leaves,
+   35,089,024 padded elements), both EMA modes: fp32 rtol 1e-5, atol 1e-6
+   on p, m, t and the trust vector; K1a twice, bitwise equal;
+4. serving — ViT-B/16 (224 px, bf16, attn_impl='flash', random weights from
+   the seed, buckets 8..64) through ``build_service``: warmup, then 48
+   closed-loop requests from 3 streams with every launch counter set to 0
+   just before and read just after; every embedding must be (1, 768) and
+   finite, no bucket may warm again, and the flash kernel must have
+   launched 12 times per served batch.  One bucket-8 batch is held against
+   the same weights with attn_impl='dense' (bf16, rtol = atol = 3e-2: bf16
+   rounds the scores and probabilities at other points);
+5. training — the headline run ``--task fake --arch resnet50
+   --image-size-override 224 --batch-size 64 --epochs 3 --debug-step
+   --fused-update on`` (bf16, heads 4096/256, random weights from the
+   seed) through the CLI's config and the trainer, with every launch
+   counter set to 0 just before and read just after: 3 optimizer steps,
+   every loss finite, K1a = K1b = 1 launch per step.  Then one more step
+   on the trained state: the params must move, the target must be
+   tau t + (1 - tau) p', and the plain unfused chain applied to a copy of
+   the pre-step state with that step's gradients must give the same p, m
+   and t (rtol 1e-5, atol 1e-6).  Then 10 timed steps (wall ms per step,
+   images/s) and a torch.profiler breakdown of 3 more by kernel kind;
+6. prints the ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    "device": ...}`` line.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -38,6 +55,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 SLICE_TOL = 3e-2
 HEADS, SEQ = 12, 197               # ViT-B/16 at 224 px: 196 patches + cls
+K1_TOL = dict(rtol=1e-5, atol=1e-6)
+TRAIN_ARGV = ["--task", "fake", "--arch", "resnet50",
+              "--image-size-override", "224", "--batch-size", "64",
+              "--epochs", "3", "--debug-step", "--fused-update", "on"]
+RN50_PADDED = 35_089_024           # the ResNet-50 BYOL segment layout
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -116,20 +138,28 @@ def _kind(kernel_name):
     name = kernel_name.lower()
     if "flash_fwd" in name:
         return "flash_attention"
+    if "row_norms_kernel" in name or "segment_reduce_kernel" in name:
+        return "K1a_segment_norms"
+    if "fused_apply_kernel" in name:
+        return "K1b_fused_apply"
     if "memcpy" in name or "memset" in name:
         return "memcpy"
-    if "conv" in name or "fprop" in name:
+    if "batch_norm" in name or "batchnorm" in name or "bn_" in name:
+        return "batch_norm"
+    if any(w in name for w in ("conv", "fprop", "dgrad", "wgrad")):
         return "conv"
     if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass")):
         return "matmul"
-    for op in ("layer_norm", "gelu", "copy", "add"):
+    for op in ("layer_norm", "gelu", "copy", "cat", "add"):
         if op in name:
             return op
+    if "elementwise" in name or "reduce" in name:
+        return "elementwise"
     return "other"
 
 
-def profile_embed(engine, rows, card, iters=3):
-    """Device time per kernel kind of one full-bucket embed, under
+def _device_profile(run, iters, card, what):
+    """Device ms per kernel kind of ``iters`` calls of ``run`` under
     torch.profiler (its own overhead is in the wall time it prints)."""
     import torch
     from torch.autograd import DeviceType
@@ -139,9 +169,10 @@ def profile_embed(engine, rows, card, iters=3):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            engine.embed(rows)
+            run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    kinds, top = {}, []
+    kinds, top, launches = {}, [], 0
     for evt in prof.key_averages():
         # kernels and copies only: an operator's entry repeats its kernels'
         # device time
@@ -149,14 +180,226 @@ def profile_embed(engine, rows, card, iters=3):
         if evt.device_type == DeviceType.CUDA and ms > 0:
             kinds[_kind(evt.key)] = kinds.get(_kind(evt.key), 0.0) + ms
             top.append((ms, evt.key))
+            launches += evt.count
     busy = sum(kinds.values())
-    print(f"profile: bucket {rows.shape[0]} embed, per batch: wall "
-          f"{wall_ms:.3f} ms, device busy {busy:.3f} ms "
-          f"({busy / wall_ms:.1%}); device ms by kind "
+    print(f"profile: {what}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms ({busy / wall_ms:.1%}) in {launches / iters:.0f} "
+          f"kernels and copies; device ms by kind "
           f"{ {k: round(v, 4) for k, v in sorted(kinds.items())} } [{card}]",
           flush=True)
     for ms, name in sorted(top, reverse=True)[:10]:
         print(f"profile:   {ms:.4f} ms  {name[:100]}", flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy, "kinds": kinds}
+
+
+def profile_embed(engine, rows, card, iters=3):
+    """Device time per kernel kind of one full-bucket embed."""
+    _device_profile(lambda: engine.embed(rows), iters, card,
+                    f"bucket {rows.shape[0]} embed, per batch")
+
+
+def _zero_counters():
+    from byol_tpu_torch.ops import flash_attention as fa
+    from byol_tpu_torch.ops import fused_update as fu
+    fa.LAUNCHES = fu.SEGMENT_NORMS_LAUNCHES = fu.FUSED_APPLY_LAUNCHES = 0
+
+
+def _read_counters():
+    """(flash_attention, segment_norms, fused_apply) launches."""
+    from byol_tpu_torch.ops import flash_attention as fa
+    from byol_tpu_torch.ops import fused_update as fu
+    return fa.LAUNCHES, fu.SEGMENT_NORMS_LAUNCHES, fu.FUSED_APPLY_LAUNCHES
+
+
+def _rn50_segment_map():
+    """The segment map of the port's ResNet-50 BYOL net (heads 4096/256,
+    10 classes) and its leaves' shapes, from the parameter shapes alone."""
+    from byol_tpu_torch.models.byol_net import BYOLNet
+    from byol_tpu_torch.models.registry import get_backbone
+    from byol_tpu_torch.ops import fused_update as fu
+    from byol_tpu_torch.training.state import tree_order
+    backbone, _ = get_backbone("resnet50")
+    params = dict(BYOLNet(backbone, num_classes=10).named_parameters())
+    leaves = [params[n] for n in tree_order(params)]
+    return fu.segment_map_for(leaves), [p.shape for p in leaves]
+
+
+def check_fused_update(card):
+    """K1a and K1b against their plain versions at the ResNet-50 layout;
+    returns their kernel-line entries (launches filled in later)."""
+    import torch
+    from byol_tpu_torch.ops import fused_update as fu
+    seg, shapes = _rn50_segment_map()
+    if (seg.num_segments, seg.total) != (173, RN50_PADDED):
+        raise AssertionError(f"fused update: ResNet-50 layout has "
+                             f"{seg.num_segments} segments, {seg.total} "
+                             f"elements (want 173, {RN50_PADDED})")
+    layout = fu.FusedLayout.build(seg, 1e-6, "cuda")
+    real = torch.zeros(seg.total, dtype=torch.bool, device="cuda")
+    for start, size in zip(seg.starts, seg.sizes):
+        real[start:start + size] = True
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p, g, m, t = (torch.randn(seg.total, device="cuda", generator=gen)
+                  * k * real for k in (0.05, 1e-3, 1e-3, 0.05))
+    scale, norms = fu.segment_norms(p, g, layout)
+    scale2, norms2 = fu.segment_norms(p, g, layout)
+    bitwise = torch.equal(scale, scale2) and torch.equal(norms, norms2)
+    ref_scale, ref_norms = fu.segment_norms_reference(p, g, layout)
+    err_a = max((scale - ref_scale).abs().max().item(),
+                (norms - ref_norms).abs().max().item())
+    ok_a = (bitwise and torch.allclose(scale, ref_scale, **K1_TOL)
+            and torch.allclose(norms, ref_norms, **K1_TOL))
+    err_b, ok_b = 0.0, True
+    for ema_pre in (False, True):
+        got = [x.clone() for x in (p, m, t)]
+        want = [x.clone() for x in (p, m, t)]
+        kw = dict(lr=0.3, tau=0.99, momentum_decay=0.9, ema_pre=ema_pre)
+        fu.fused_apply(got[0], g, got[1], got[2], ref_scale, layout, **kw)
+        fu.fused_apply_reference(want[0], g, want[1], want[2], ref_scale,
+                                 layout, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            err_b = max(err_b, (a - b).abs().max().item())
+            ok_b = ok_b and torch.allclose(a, b, **K1_TOL)
+    bufs = [x.clone() for x in (p, m, t)]
+    apply_kw = dict(lr=1e-4, tau=0.99, momentum_decay=0.9, ema_pre=False)
+    # the whole update both ways at this layout: K1a + K1b, and the
+    # unfused lars_momentum chain (leaf by leaf) + the EMA tick
+    from byol_tpu_torch.optim.factory import LarsMomentum
+    leaves = [fu.unpack_flat(b, seg, shapes) for b in (bufs[0], g, bufs[1])]
+
+    def unfused():
+        LarsMomentum(weight_decay=1e-6).update(
+            *leaves, lr=1e-4, adapted=seg.adapted)
+        bufs[2].mul_(0.99).add_(bufs[0], alpha=0.01)
+    fused_ms = _time_ms(lambda: fu.fused_lars_ema_update_buffers(
+        bufs[0], g, bufs[1], bufs[2], layout, lr=1e-4, tau=0.99,
+        momentum_decay=0.9))
+    unfused_ms = _time_ms(unfused)
+    print(f"fused update: K1a + K1b {fused_ms:.4f} ms, unfused chain + EMA "
+          f"tick {unfused_ms:.4f} ms at {seg.num_segments} leaves [{card}]",
+          flush=True)
+    n_bytes = {"segment_norms": 2 * 4 * seg.total,
+               "fused_apply": 7 * 4 * seg.total}
+    rows = {
+        "segment_norms": dict(
+            ms=_time_ms(lambda: fu.segment_norms(p, g, layout)),
+            plain_ms=_time_ms(
+                lambda: fu.segment_norms_reference(p, g, layout)),
+            max_abs_err=err_a, ok=ok_a, bitwise_repeatable=bitwise),
+        "fused_apply": dict(
+            ms=_time_ms(lambda: fu.fused_apply(
+                bufs[0], g, bufs[1], bufs[2], scale, layout, **apply_kw)),
+            plain_ms=_time_ms(lambda: fu.fused_apply_reference(
+                bufs[0], g, bufs[1], bufs[2], scale, layout, **apply_kw)),
+            max_abs_err=err_b, ok=ok_b),
+    }
+    for name, row in rows.items():
+        row.update(bound_ms=n_bytes[name] / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes", library_ms=None, elements=seg.total)
+        print(f"{name} {row} [{card}]", flush=True)
+    if not (ok_a and ok_b):
+        raise AssertionError(
+            f"fused update disagrees with its plain version: K1a ok={ok_a} "
+            f"(bitwise repeatable {bitwise}, max abs err {err_a}), K1b "
+            f"ok={ok_b} (max abs err {err_b})")
+    return rows
+
+
+def run_training(card):
+    """The training path: the headline CLI config through the trainer."""
+    import dataclasses
+
+    import torch
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.core.config import resolve
+    from byol_tpu_torch.core.precision import get_policy
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.optim.schedules import cosine_ema_decay
+    from byol_tpu_torch.training.build import build_tx, step_config
+    from byol_tpu_torch.training.steps import make_train_step
+    from byol_tpu_torch.training.trainer import _to_device, fit
+
+    cfg = config_from_args(build_parser().parse_args(TRAIN_ARGV))
+    if not cfg.device.half:
+        raise AssertionError("training: the headline run is bf16")
+    loader = get_loader(cfg.replace(device=dataclasses.replace(
+        cfg.device, num_replicas=1)))
+    t0 = time.perf_counter()
+    _zero_counters()
+    result = fit(cfg, device=torch.device("cuda"), loader=loader)
+    counts = _read_counters()
+    steps = len(result.step_losses)
+    print(f"training: {steps} steps in {time.perf_counter() - t0:.1f}s "
+          f"(build included), losses {result.step_losses}, launches "
+          f"(flash, segment_norms, fused_apply) = {counts}", flush=True)
+    if steps != 3 or not all(map(math.isfinite, result.step_losses)):
+        raise AssertionError(f"training: {steps} steps, losses "
+                             f"{result.step_losses}")
+    if counts != (0, steps, steps):
+        raise AssertionError(f"training: launches {counts}, want (0, "
+                             f"{steps}, {steps})")
+
+    # one more step on the trained state: params move, the target ticks,
+    # and the plain unfused chain agrees with the kernels on the same
+    # gradients (so cuDNN's non-determinism does not enter)
+    state = result.state
+    rcfg = resolve(cfg.replace(device=dataclasses.replace(
+        cfg.device, num_replicas=1)),
+        num_train_samples=loader.num_train_samples,
+        num_test_samples=loader.num_test_samples,
+        output_size=loader.output_size, input_shape=loader.input_shape)
+    tx, schedule = build_tx(rcfg)
+    scfg = step_config(rcfg)
+    train_step = make_train_step(tx, scfg, schedule,
+                                 get_policy(cfg.device.half))
+    batch = _to_device(next(iter(loader.train_loader)), "cuda")
+    lr = schedule(state.count)
+    tau = cosine_ema_decay(state.ema_step, scfg.total_train_steps,
+                           scfg.base_decay)
+    p0, m0, t0 = (x.clone() for x in (state.params, state.momentum,
+                                      state.target))
+    train_step(state, batch)
+    torch.cuda.synchronize()
+    moved = (state.params - p0).abs().max().item()
+    ema_ok = torch.allclose(state.target, tau * t0 + (1 - tau) *
+                            state.params, **K1_TOL)
+    with torch.no_grad():
+        tx.update(state.leaves(p0), state.leaves(state.grads),
+                  state.leaves(m0), lr=lr, adapted=state.seg.adapted)
+        t0.mul_(tau).add_(p0, alpha=1 - tau)
+    errs = {name: (got - want).abs().max().item()
+            for name, got, want in (("p", state.params, p0),
+                                    ("m", state.momentum, m0),
+                                    ("t", state.target, t0))}
+    chain_ok = all(torch.allclose(got, want, **K1_TOL)
+                   for got, want in ((state.params, p0),
+                                     (state.momentum, m0),
+                                     (state.target, t0)))
+    print(f"training: step {state.step}: lr {lr:.6g}, tau {tau:.6g}, params "
+          f"moved by up to {moved:.3e}, target = tau t + (1-tau) p': "
+          f"{ema_ok}; kernels vs plain unfused chain on the same "
+          f"gradients: max abs err {errs} ok={chain_ok}", flush=True)
+    if not (moved > 0 and ema_ok and chain_ok):
+        raise AssertionError("training: the fused step is wrong")
+
+    # step time at batch 64, then a device breakdown of 3 steps
+    def step():
+        train_step(state, batch)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0_wall = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0_wall) * 1e3 / 10
+    print(f"training: batch 64 step {step_ms:.3f} ms = "
+          f"{64 / step_ms * 1e3:.1f} img/s over 10 steps (peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) [{card}]",
+          flush=True)
+    _device_profile(step, 3, card, "resnet50 train step, batch 64, per step")
+    return counts
 
 
 def run_slice(card):
@@ -193,9 +436,11 @@ def run_slice(card):
                                  f"{out.shape}, finite={finite}")
 
     batches0 = service.meter.total_batches
-    fa.LAUNCHES = 0
+    _zero_counters()
     res = run_closed_loop(embed, service.engine.input_shape, 48, 3, seed=0)
     launches = fa.LAUNCHES
+    if _read_counters()[1:] != (0, 0):
+        raise AssertionError("slice: serving launched a K1 kernel")
     batches = service.meter.total_batches - batches0
     snap = service.meter.snapshot(time.perf_counter(), reset=False)
     print(f"slice: {res.summary()} [{card}]", flush=True)
@@ -277,7 +522,10 @@ def main() -> int:
                 print(f"build: {line.strip()}", flush=True)
 
     flash_rows = check_flash(card)
+    k1_rows = check_fused_update(card)
     launches = run_slice(card)
+    torch.cuda.empty_cache()
+    train_counts = run_training(card)
 
     main_row = next(r for r in flash_rows
                     if r["shape"][0] == 64 and r["dtype"] == "bfloat16")
@@ -297,6 +545,19 @@ def main() -> int:
         "shape": main_row["shape"],
         "ok": all(r["ok"] for r in flash_rows),
     }]
+    for name, line, launches in (
+            ("segment_norms", 198, train_counts[1]),
+            ("fused_apply", 215, train_counts[2])):
+        row = k1_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "byol_tpu_torch/ops/csrc/fused_update.cu",
+            "replaces": f"byol_tpu/ops/fused_update.py:{line}",
+            "launches": launches, "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "elements": row["elements"],
+            "ok": row["ok"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -134,5 +134,7 @@ def test_cli_without_a_card_fails_loudly(capsys):
 
 
 def test_cli_refuses_unported_arch(capsys):
-    assert serve_main(["--no-cuda", "--smoke", "1"]) != 0   # resnet50
-    assert "not yet ported" in capsys.readouterr().err
+    # every arch of the JAX registry is ported now; one outside it is not
+    assert serve_main(["--no-cuda", "--smoke", "1", "--arch",
+                       "alexnet"]) != 0
+    assert "unknown arch" in capsys.readouterr().err

@@ -97,7 +97,9 @@ def test_registry_specs_and_unported_archs():
         assert spec.feature_dim == width and not spec.has_batchnorm
     vit, dim = get_backbone("vit_s16", image_size=32, attn_impl="flash")
     assert (vit.depth, vit.num_heads, vit.patch_size, dim) == (12, 6, 16, 384)
-    with pytest.raises(ValueError, match="not yet ported"):
-        get_spec("resnet50")
+    for name, dim in {"resnet18": 512, "resnet50": 2048,
+                      "resnet50w2": 4096, "wide_resnet50_2": 2048}.items():
+        assert get_spec(name).feature_dim == dim and \
+            get_spec(name).has_batchnorm
     with pytest.raises(ValueError, match="unknown arch"):
         get_spec("alexnet")
