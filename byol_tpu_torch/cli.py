@@ -37,6 +37,18 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("off", "on"),
                    help="'on': the LARS+EMA update runs as the fused "
                         "kernels K1a + K1b (ops/fused_update.py)")
+    p.add_argument("--augment-placement", type=str, default="loader",
+                   choices=("loader", "step"),
+                   help="where two-view train augmentation runs: 'loader' "
+                        "= the train iterator yields float32 views; 'step' "
+                        "= the loader ships raw uint8 batches and the train "
+                        "step augments them on the device")
+    p.add_argument("--fused-augment", type=str, default="off",
+                   choices=("off", "on"),
+                   help="'on': the in-step augmentation runs as the fused "
+                        "kernel K2 (ops/fused_augment.py); requires "
+                        "--augment-placement step")
+    p.add_argument("--color-jitter-strength", type=float, default=1.0)
     p.add_argument("--debug-step", action="store_true",
                    help="one minibatch per epoch")
     p.add_argument("--seed", type=int, default=1234)
@@ -52,12 +64,16 @@ def config_from_args(args: argparse.Namespace) -> Config:
     return Config(
         task=TaskConfig(task=args.task, batch_size=args.batch_size,
                         epochs=args.epochs,
-                        image_size_override=args.image_size_override),
+                        image_size_override=args.image_size_override,
+                        augment_placement=args.augment_placement,
+                        fused_augment=args.fused_augment),
         model=ModelConfig(arch=args.arch,
                           projection_size=args.projection_size,
                           head_latent_size=args.head_latent_size,
                           base_decay=args.base_decay),
-        regularizer=RegularizerConfig(weight_decay=args.weight_decay),
+        regularizer=RegularizerConfig(
+            weight_decay=args.weight_decay,
+            color_jitter_strength=args.color_jitter_strength),
         optim=OptimConfig(lr=args.lr, warmup=args.warmup,
                           fused_update=args.fused_update),
         device=DeviceConfig(debug_step=args.debug_step, seed=args.seed,

@@ -164,11 +164,6 @@ def _refuse_unported(cfg: Config) -> None:
         raise _not_ported("--zero1 on", "section 1 item 10")
     if cfg.device.flat_resident == "on":
         raise _not_ported("--flat-resident on", "section 1 item 10")
-    if cfg.task.fused_augment == "on":
-        raise _not_ported("--fused-augment on (kernel K2)",
-                          "section 2, K2")
-    if cfg.task.augment_placement == "step":
-        raise _not_ported("--augment-placement step", "section 1 item 7")
     if cfg.optim.accum_steps > 1:
         raise _not_ported("--accum-steps > 1", "section 1 item 6")
     if cfg.device.model_parallel > 1 or cfg.device.sequence_parallel > 1:
@@ -229,10 +224,26 @@ def resolve(cfg: Config, *, num_train_samples: int, num_test_samples: int,
             raise ValueError(f"--fused-update on: {reason}")
     if cfg.device.flat_resident == "on" and cfg.optim.fused_update != "on":
         raise ValueError("--flat-resident on requires --fused-update on")
-    if (cfg.task.fused_augment == "on"
-            and cfg.task.augment_placement != "step"):
-        raise ValueError("--fused-augment on requires --augment-placement "
-                         "step")
+    if cfg.task.fused_augment == "on":
+        if cfg.task.augment_placement != "step":
+            raise ValueError(
+                "--fused-augment on requires --augment-placement step: "
+                "the kernel fuses the IN-STEP augmentation path (raw "
+                "uint8 batches augmented inside the accumulation scan); "
+                "with loader placement there is no in-step chain to fuse")
+        if cfg.optim.accum_bn_mode == "global" and accum > 1:
+            raise ValueError(
+                "--fused-augment on does not compose with --accum-bn-mode "
+                "global: the global oracle vmaps microbatches, and the "
+                "augment kernel's pallas_call/shard_map cannot run under "
+                "that vmap — use 'average' or 'microbatch'")
+        if (cfg.device.model_parallel > 1
+                or cfg.device.sequence_parallel > 1):
+            raise ValueError(
+                "--fused-augment on spans the data axis only (the "
+                "kernel's shard_map augments each chip's batch shard); "
+                "model/sequence-parallel meshes are not yet supported — "
+                "run those with --fused-augment off")
     if cfg.device.nan_policy == "halt" and cfg.device.telemetry == "off":
         raise ValueError("--nan-policy halt requires --telemetry epoch|step")
     _refuse_unported(cfg)

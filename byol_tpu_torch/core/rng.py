@@ -29,3 +29,12 @@ def split_named(seed: int, names: Sequence[str],
     """One generator per purpose (``params``, ...)."""
     return {name: torch.Generator(device=device).manual_seed(
         stream_seed(seed, name)) for name in names}
+
+
+def augment_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of the in-step augmentation draws of optimizer
+    step ``step``, microbatch 0 (counterpart of ``augment_keys(seed, step,
+    1)[0]`` in byol_tpu/training/steps.py).  It depends only on (seed,
+    step), never on how many steps this process ran."""
+    return torch.Generator().manual_seed(
+        stream_seed(seed, f"augment/{int(step)}/0"))

@@ -6,9 +6,15 @@ It keeps the JAX batch contract: dicts of numpy arrays ``{'view1',
 batches are reshuffled per epoch from (seed, epoch) and drop the
 remainder, test batches are in order and keep it.
 
-Host augmentation is NOT ported yet (ROADMAP.md, section 1 items 7 and 9):
-both views are the un-augmented image.  :func:`get_loader` says so in one
-printed line.
+Under ``augment_placement='step'`` the train batches are raw
+``{'images': (B, H, W, C) uint8, 'label': (B,) int32}`` and the train
+step makes both views on the device (training/steps.py).  Eval keeps the
+host path; at ``fake``/``synth`` the raw size is the model size, so the
+host resize is the identity.
+
+Host augmentation is NOT ported yet (ROADMAP.md, section 1 item 9): under
+loader placement both views are the un-augmented image.
+:func:`get_loader` says which of the two it serves in one printed line.
 """
 from __future__ import annotations
 
@@ -79,11 +85,58 @@ def _pipeline(images: np.ndarray, labels: np.ndarray, *, batch_size: int,
     return make
 
 
+def _raw_pipeline(images: np.ndarray, labels: np.ndarray, *,
+                  batch_size: int, seed: int
+                  ) -> Callable[[int], Iterator[Batch]]:
+    """Step-placement train pipeline: raw uint8 batches reshuffled per
+    epoch from (seed, epoch), remainder dropped; no host augmentation."""
+    labels = labels.astype(np.int32)
+    if images.dtype != np.uint8:
+        raise ValueError(
+            f"augment_placement='step' ships raw uint8 pixels; this dataset "
+            f"holds {images.dtype} arrays")
+
+    def make(epoch: int) -> Iterator[Batch]:
+        idx = np.arange(len(labels))
+        np.random.RandomState(seed + epoch).shuffle(idx)
+        end = len(idx) - len(idx) % batch_size
+        for lo in range(0, end, batch_size):
+            take = idx[lo:lo + batch_size]
+            yield {"images": images[take], "label": labels[take]}
+    return make
+
+
+def _check_placement(cfg: Config) -> str:
+    """The placement checks of the JAX loader, before any data is made."""
+    placement = cfg.task.augment_placement
+    if placement not in ("loader", "step"):
+        raise ValueError(f"unknown augment_placement {placement!r} "
+                         f"('loader'|'step')")
+    if placement == "step":
+        if cfg.task.task == "image_folder":
+            raise ValueError(
+                "augment_placement='step' does not serve image_folder: "
+                "decode is host-side and yields variable-size images; use "
+                "the loader placement")
+        if cfg.regularizer.aug_spec != "reference":
+            raise ValueError(
+                f"augment_placement='step' runs the canonical 'reference' "
+                f"augmentation spec on device (got "
+                f"aug_spec={cfg.regularizer.aug_spec!r})")
+        if cfg.task.data_backend == "device":
+            raise ValueError(
+                "data_backend='device' (loader-dispatched on-chip augment) "
+                "and augment_placement='step' (step-fused augment) are "
+                "mutually exclusive; pick one")
+    return placement
+
+
 def get_loader(cfg: Config, *, num_fake_samples: int = 512,
                num_synth_samples: Optional[int] = None) -> LoaderBundle:
     task = cfg.task.task
     batch = cfg.task.batch_size
     size = cfg.task.image_size_override or 32
+    placement = _check_placement(cfg)
     if task == "fake":
         x_tr, y_tr = readers.load_fake(num_fake_samples, size,
                                        seed=cfg.device.seed)
@@ -99,12 +152,19 @@ def get_loader(cfg: Config, *, num_fake_samples: int = 512,
         raise NotImplementedError(
             f"task {task!r} is not ported to byol_tpu_torch yet (ROADMAP.md, "
             "section 1 item 9); ported: 'fake', 'synth'")
-    print("loader: host augmentation is not ported yet (ROADMAP.md, section "
-          "1 items 7 and 9); both views are the un-augmented image",
-          flush=True)
+    if placement == "step":
+        print("loader: raw uint8 train batches; the train step makes both "
+              "views on the device (augment_placement='step')", flush=True)
+        make_train = _raw_pipeline(x_tr, y_tr, batch_size=batch,
+                                   seed=cfg.device.seed)
+    else:
+        print("loader: host augmentation is not ported yet (ROADMAP.md, "
+              "section 1 item 9); both views are the un-augmented image",
+              flush=True)
+        make_train = _pipeline(x_tr, y_tr, batch_size=batch,
+                               seed=cfg.device.seed, train=True)
     return LoaderBundle(
-        make_train_iter=_pipeline(x_tr, y_tr, batch_size=batch,
-                                  seed=cfg.device.seed, train=True),
+        make_train_iter=make_train,
         make_test_iter=_pipeline(x_te, y_te, batch_size=batch,
                                  seed=cfg.device.seed, train=False),
         input_shape=(size, size, 3),

@@ -102,6 +102,16 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def entry(name: str, argtypes):
+    """The C entry point ``name`` of the library, its ``argtypes`` declared
+    on first use: undeclared, ctypes would pass a pointer as a 32-bit int."""
+    fn = getattr(library(), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def check(err: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if err != 0:

@@ -79,14 +79,9 @@ def _rows_16b_aligned(t: torch.Tensor) -> bool:
             and all(t.stride(i) % elems == 0 for i in range(3)))
 
 
-def _entry():
-    fn = getattr(common.library(), _ENTRY)
-    if fn.argtypes is None:          # declared once: pointers stay 64-bit
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = [ctypes.c_void_p] * 4 + [
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -111,9 +106,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
-    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   strides, b, h, s, d, int(q.dtype == torch.bfloat16),
-                   torch.cuda.current_stream(q.device).cuda_stream)
+    err = common.entry(_ENTRY, _ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        b, h, s, d, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
     common.check(err, "flash_attention")
     LAUNCHES += 1
     return out

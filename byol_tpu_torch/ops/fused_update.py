@@ -157,14 +157,6 @@ def _check(layout: FusedLayout, *bufs: torch.Tensor) -> None:
                          f"buffers on {dev}")
 
 
-def _entry(name: str, argtypes):
-    fn = getattr(common.library(), name)
-    if fn.argtypes is None:          # declared once: pointers stay 64-bit
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -212,7 +204,7 @@ def segment_norms(p: torch.Tensor, g: torch.Tensor, layout: FusedLayout,
                         device=p.device)
     scale = torch.empty(seg.num_segments, dtype=torch.float32,
                         device=p.device)
-    fn = _entry("byol_segment_norms", [_P] * 9 + [_I, _I, _F, _F, _P])
+    fn = common.entry("byol_segment_norms", [_P] * 9 + [_I, _I, _F, _F, _P])
     err = fn(p.data_ptr(), g.data_ptr(), layout.row_seg.data_ptr(),
              layout.seg_wd.data_ptr(), layout.seg_row_start.data_ptr(),
              layout.seg_adapted.data_ptr(), partial.data_ptr(),
@@ -264,7 +256,7 @@ def fused_apply(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                                      ema_pre=ema_pre)
     if p.device.type != "cuda":
         raise ValueError(f"fused_apply: no kernel for device {p.device}")
-    fn = _entry("byol_fused_apply", [_P] * 7 + [_I, _F, _F, _F, _I, _P])
+    fn = common.entry("byol_fused_apply", [_P] * 7 + [_I, _F, _F, _F, _I, _P])
     err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), t.data_ptr(),
              layout.row_seg.data_ptr(), layout.seg_wd.data_ptr(),
              scale.data_ptr(), layout.seg.num_rows, lr, tau,

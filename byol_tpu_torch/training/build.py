@@ -78,7 +78,12 @@ def step_config(rcfg: ResolvedConfig) -> StepConfig:
         fuse_views=cfg.model.fuse_views,
         ema_update_mode=cfg.parity.ema_update_mode,
         normalize_inputs=cfg.parity.normalize_inputs,
-        fused_update=cfg.optim.fused_update == "on")
+        fused_update=cfg.optim.fused_update == "on",
+        augment_in_step=cfg.task.augment_placement == "step",
+        fused_augment=cfg.task.fused_augment == "on",
+        image_size=rcfg.input_shape[0],
+        color_jitter_strength=cfg.regularizer.color_jitter_strength,
+        aug_seed=cfg.device.seed)
 
 
 def setup_training(rcfg: ResolvedConfig, device,

@@ -3,6 +3,11 @@ for ``accum_steps == 1``.
 
 One train step, as the JAX step computes it:
 
+0. under ``augment_in_step`` the batch is raw uint8 images, and both views
+   are made here on the device from draws that depend only on (aug_seed,
+   step): through kernel K2 (ops/fused_augment.py) under
+   ``fused_augment``, else through the unfused chain
+   (data/device_augment.py);
 1. both views are cast to the compute dtype (and standardised under
    ``normalize_inputs``);
 2. the TARGET network runs both views outside autograd, in train mode on
@@ -21,19 +26,22 @@ One train step, as the JAX step computes it:
    ``ema_update_mode='reference_pre'``.
 
 lr and tau are computed on the host from the schedule count and
-``ema_step``; the step reads nothing back from the device.  It returns the
+``ema_step``, the augmentation draws on the host's generator; the step
+reads nothing back from the device.  It returns the
 metrics as device scalars.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from byol_tpu_torch.core.precision import FP32, Policy
+from byol_tpu_torch.data import device_augment
 from byol_tpu_torch.objectives.byol_loss import loss_function
 from byol_tpu_torch.objectives.metrics import cross_entropy, topk_accuracy
+from byol_tpu_torch.ops import fused_augment as fused_aug_lib
 from byol_tpu_torch.ops import fused_update as fused_lib
 from byol_tpu_torch.optim.factory import MOMENTUM_DECAY, LarsMomentum
 from byol_tpu_torch.optim.schedules import cosine_ema_decay
@@ -41,6 +49,10 @@ from byol_tpu_torch.training.linear_eval import normalize_images
 from byol_tpu_torch.training.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
+# (step, batch, height, width) -> both views' draws, on the CPU
+DrawViews = Callable[[int, int, int, int],
+                     Tuple[device_augment.ViewParams,
+                           device_augment.ViewParams]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,11 +64,16 @@ class StepConfig:
     ema_update_mode: str = "post"          # 'post' | 'reference_pre'
     normalize_inputs: bool = False         # Quirk Q3
     fused_update: bool = False             # K1a + K1b instead of the chain
+    augment_in_step: bool = False          # batch = raw uint8 images
+    fused_augment: bool = False            # K2 instead of the unfused chain
+    image_size: int = 0                    # view size under augment_in_step
+    color_jitter_strength: float = 1.0
+    aug_seed: int = 0                      # seed of the in-step draws
 
 
-def _views(batch, policy: Policy, normalize: bool):
-    aug1 = policy.cast_to_compute(batch["view1"])
-    aug2 = policy.cast_to_compute(batch["view2"])
+def _views(view1, view2, policy: Policy, normalize: bool):
+    aug1 = policy.cast_to_compute(view1)
+    aug2 = policy.cast_to_compute(view2)
     if normalize:
         aug1, aug2 = normalize_images(aug1), normalize_images(aug2)
     return aug1, aug2
@@ -73,17 +90,44 @@ def _forward_views(net, aug1: torch.Tensor, aug2: torch.Tensor, fuse: bool):
 
 def make_train_step(tx: LarsMomentum, scfg: StepConfig,
                     lr_schedule: Callable[[int], float],
-                    policy: Policy = FP32
+                    policy: Policy = FP32,
+                    draw_views: Optional[DrawViews] = None
                     ) -> Callable[[TrainState, Metrics], Metrics]:
     """``train_step(state, batch) -> metrics``; updates ``state`` in place.
 
     ``batch`` = {'view1', 'view2': (B, H, W, C) float [0, 1], 'label':
-    (B,) int} on the state's device."""
+    (B,) int} on the state's device, or under ``augment_in_step``
+    {'images': (B, H, W, C) uint8, 'label'}.  ``draw_views`` gives the
+    step's draws (default: ``device_augment.step_views`` of ``aug_seed``);
+    tests pass draws made elsewhere through it."""
     if scfg.ema_update_mode not in ("post", "reference_pre"):
         raise ValueError(
             f"unknown ema_update_mode {scfg.ema_update_mode!r}")
+    if scfg.augment_in_step and scfg.image_size <= 0:
+        raise ValueError(
+            "augment_in_step requires image_size > 0 (the augment target "
+            f"size), got {scfg.image_size}")
+    if scfg.fused_augment and not scfg.augment_in_step:
+        raise ValueError(
+            "fused_augment=True requires augment_in_step=True: the "
+            "kernel fuses the IN-STEP augmentation path (raw uint8 "
+            "batches); loader placement has no in-step chain to fuse")
+    if draw_views is None:
+        def draw_views(step, b, h, w):
+            return device_augment.step_views(scfg.aug_seed, step, b, h, w,
+                                             scfg.color_jitter_strength)
     ema_pre = scfg.ema_update_mode == "reference_pre"
     layout = None                   # the kernels' device-side segment map
+
+    def augment(state: TrainState, images: torch.Tensor):
+        """Both views of the raw batch, made on its device."""
+        b, h, w = images.shape[:3]
+        views = device_augment.to_device(draw_views(state.step, b, h, w),
+                                         images.device)
+        two_view = (fused_aug_lib.fused_two_view if scfg.fused_augment
+                    else device_augment.two_view)
+        return two_view(images, scfg.image_size, views,
+                        strength=scfg.color_jitter_strength)
 
     def update(state: TrainState, lr: float, tau: float) -> torch.Tensor:
         nonlocal layout
@@ -108,7 +152,11 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
 
     def train_step(state: TrainState, batch) -> Metrics:
         labels = batch["label"]
-        aug1, aug2 = _views(batch, policy, scfg.normalize_inputs)
+        if scfg.augment_in_step:
+            view1, view2 = augment(state, batch["images"])
+        else:
+            view1, view2 = batch["view1"], batch["view2"]
+        aug1, aug2 = _views(view1, view2, policy, scfg.normalize_inputs)
         with torch.no_grad():
             state.target_net.train()
             tgt1, tgt2 = _forward_views(state.target_net, aug1, aug2,
@@ -152,7 +200,8 @@ def make_eval_step(scfg: StepConfig, policy: Policy = FP32
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch) -> Metrics:
-        aug1, aug2 = _views(batch, policy, scfg.normalize_inputs)
+        aug1, aug2 = _views(batch["view1"], batch["view2"], policy,
+                            scfg.normalize_inputs)
         labels = batch["label"]
         mask = batch.get("mask")
         state.net.eval()

@@ -39,8 +39,17 @@ class FitResult:
     images_per_sec: float           # last epoch
 
 
-def _range_check(batch) -> None:
-    """The input contract: views in [0, 1]."""
+def _range_check(batch, input_shape) -> None:
+    """The input contract: raw (B, H, W, C) uint8 images under step
+    placement, else views in [0, 1]."""
+    if "images" in batch:
+        images = batch["images"]
+        if images.dtype != np.uint8 or images.ndim != 4 or \
+                images.shape[-1] != input_shape[-1]:
+            raise ValueError(f"batch images must be (B, H, W, "
+                             f"{input_shape[-1]}) uint8, got {images.dtype} "
+                             f"{images.shape}")
+        return
     for key in ("view1", "view2"):
         lo, hi = float(batch[key].min()), float(batch[key].max())
         if lo < 0.0 or hi > 1.0:
@@ -136,7 +145,7 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
         t0 = time.perf_counter()
         for batch in _epoch_batches(loader, rcfg.steps_per_train_epoch):
             if epoch == 0 and not losses:
-                _range_check(batch)
+                _range_check(batch, rcfg.input_shape)
             metrics = train_step(state, _to_device(batch, device))
             acc.update(metrics)
             losses.append(metrics["loss_mean"])

@@ -18,7 +18,12 @@ Phases (any failure raises, and the script exits nonzero):
    fp32 1e-5, bf16 2e-2.  The fused LARS+EMA update (K1a segment norms, K1b
    fused apply) at the ResNet-50 BYOL segment layout (173 leaves,
    35,089,024 padded elements), both EMA modes: fp32 rtol 1e-5, atol 1e-6
-   on p, m, t and the trust vector; K1a twice, bitwise equal;
+   on p, m, t and the trust vector; K1a twice, bitwise equal.  The fused
+   two-view augmentation (K2) at batch 64, uint8 224 -> 224 on the port's
+   draws, and at batch 8 for 256 -> 224 (the downsampling arm), fp32
+   input, strength 0 and forced gates: max abs err 1e-5 on both views,
+   bitwise repeatable; the crop contraction alone as two fp32 einsums is
+   timed beside it;
 4. serving — ViT-B/16 (224 px, bf16, attn_impl='flash', random weights from
    the seed, buckets 8..64) through ``build_service``: warmup, then 48
    closed-loop requests from 3 streams with every launch counter set to 0
@@ -29,15 +34,20 @@ Phases (any failure raises, and the script exits nonzero):
    rounds the scores and probabilities at other points);
 5. training — the headline run ``--task fake --arch resnet50
    --image-size-override 224 --batch-size 64 --epochs 3 --debug-step
-   --fused-update on`` (bf16, heads 4096/256, random weights from the
-   seed) through the CLI's config and the trainer, with every launch
-   counter set to 0 just before and read just after: 3 optimizer steps,
-   every loss finite, K1a = K1b = 1 launch per step.  Then one more step
-   on the trained state: the params must move, the target must be
-   tau t + (1 - tau) p', and the plain unfused chain applied to a copy of
-   the pre-step state with that step's gradients must give the same p, m
-   and t (rtol 1e-5, atol 1e-6).  Then 10 timed steps (wall ms per step,
-   images/s) and a torch.profiler breakdown of 3 more by kernel kind;
+   --fused-update on --augment-placement step --fused-augment on`` (bf16,
+   heads 4096/256, random weights from the seed, both views made in the
+   step from raw uint8 batches) through the CLI's config and the trainer,
+   with every launch counter set to 0 just before and read just after: 3
+   optimizer steps, every loss finite, K2 = K1a = K1b = 1 launch per step.
+   Then one more step on the trained state: the params must move, the
+   target must be tau t + (1 - tau) p', the plain unfused chain applied to
+   a copy of the pre-step state with that step's gradients must give the
+   same p, m and t (rtol 1e-5, atol 1e-6), and the step's K2 views must
+   equal the unfused augmentation chain's on its recorded draws (1e-5).
+   Then the augmentation of a batch alone both ways, 10 timed steps each
+   with K2, with the unfused chain and with no augmentation (in turns,
+   twice), and a torch.profiler breakdown of 3 steps of each by kernel
+   kind;
 6. prints the ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    "device": ...}`` line.
 """
@@ -56,9 +66,11 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 SLICE_TOL = 3e-2
 HEADS, SEQ = 12, 197               # ViT-B/16 at 224 px: 196 patches + cls
 K1_TOL = dict(rtol=1e-5, atol=1e-6)
+K2_TOL = 1e-5
 TRAIN_ARGV = ["--task", "fake", "--arch", "resnet50",
               "--image-size-override", "224", "--batch-size", "64",
-              "--epochs", "3", "--debug-step", "--fused-update", "on"]
+              "--epochs", "3", "--debug-step", "--fused-update", "on",
+              "--augment-placement", "step", "--fused-augment", "on"]
 RN50_PADDED = 35_089_024           # the ResNet-50 BYOL segment layout
 
 
@@ -134,10 +146,92 @@ def check_flash(card):
     return rows
 
 
+def _k2_operands(b, raw, size, u8, strength, gates, seed):
+    """Images and K2 operands on the card: draws from the port's stream
+    of step ``seed`` (gates forced to 0 or 1 when ``gates`` is given)."""
+    import torch
+    from byol_tpu_torch.data import device_augment as da
+    from byol_tpu_torch.ops import fused_augment as fa
+    views = da.step_views(1234, seed, b, raw, raw, strength)
+    if gates is not None:
+        views = [p._replace(**{k: torch.full((b,), float(gates))
+                               for k in ("flip", "jitter", "gray", "blur")})
+                 for p in views]
+    views = da.to_device(views, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.randint(0, 256, (b, raw, raw, 3), generator=gen,
+                        device="cuda", dtype=torch.uint8)
+    if not u8:
+        img = img.float() / 255.0
+    per_view = [fa.view_kernel_inputs(p, raw, raw, size) for p in views]
+    wy, wx, prm = (torch.stack([per_view[0][i], per_view[1][i]], dim=1)
+                   for i in range(3))
+    return img, wy, wx, prm
+
+
+def check_two_view(card):
+    """K2 against its plain version, TF32 off: the training shape, the
+    downsampling arm (256 -> 224), fp32 input, strength 0 (no hue) and
+    forced gates; returns the per-case results (the first is the training
+    shape)."""
+    import torch
+    from byol_tpu_torch.ops import fused_augment as fa
+    rows = []
+    for name, b, raw, u8, strength, gates in (
+            ("batch 64 uint8 224->224", 64, 224, True, 1.0, None),
+            ("batch 8 uint8 256->224 (downsampling)", 8, 256, True, 1.0,
+             None),
+            ("batch 8 float32 224->224", 8, 224, False, 1.0, None),
+            ("batch 8 uint8 strength 0 (no hue)", 8, 224, True, 0.0, None),
+            ("batch 8 uint8 gates all on", 8, 224, True, 1.0, 1),
+            ("batch 8 uint8 gates all off (crop only)", 8, 224, True, 1.0,
+             0)):
+        size = 224
+        img, wy, wx, prm = _k2_operands(b, raw, size, u8, strength, gates,
+                                           seed=len(rows))
+        hue = 0.2 * strength > 0
+        out = fa.two_view(img, wy, wx, prm, hue=hue)
+        ref = fa.two_view_reference(img, wy, wx, prm, hue=hue)
+        torch.cuda.synchronize()
+        err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+        ok = err <= K2_TOL and all(o.shape == (b, size, size, 3) and
+                                   bool(torch.isfinite(o).all())
+                                   for o in out)
+        again = fa.two_view(img, wy, wx, prm, hue=hue)
+        bitwise = all(torch.equal(a, o) for a, o in zip(again, out))
+        n_bytes = (img.numel() * img.element_size()
+                   + 4 * (wy.numel() + wx.numel() + prm.numel())
+                   + 2 * 4 * b * size * size * 3)
+        flops = b * 2 * (2 * 3 * size * raw * (raw + size))
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        x = img.float() / 255.0 if u8 else img
+        row = {
+            "case": name, "max_abs_err": err, "tol": K2_TOL, "ok": ok,
+            "bitwise_repeatable": bitwise,
+            "ms": _time_ms(lambda: fa.two_view(img, wy, wx, prm, hue=hue)),
+            "plain_ms": _time_ms(lambda: fa.two_view_reference(
+                img, wy, wx, prm, hue=hue)),
+            "einsum_crop_ms": _time_ms(lambda: fa.crop_contract(x, wy, wx)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "mbytes": n_bytes / 1e6, "gflop": flops / 1e9,
+        }
+        print(f"two_view {row} [{card}]", flush=True)
+        if not (ok and bitwise):
+            raise AssertionError(f"two_view disagrees with its plain version "
+                                 f"({name}): max abs err {err} (tol "
+                                 f"{K2_TOL}), bitwise repeatable {bitwise}")
+        rows.append(row)
+    return rows
+
+
 def _kind(kernel_name):
     name = kernel_name.lower()
     if "flash_fwd" in name:
         return "flash_attention"
+    if "two_view_" in name and "_kernel" in name:
+        return "K2_two_view"
     if "row_norms_kernel" in name or "segment_reduce_kernel" in name:
         return "K1a_segment_norms"
     if "fused_apply_kernel" in name:
@@ -158,7 +252,7 @@ def _kind(kernel_name):
     return "other"
 
 
-def _device_profile(run, iters, card, what):
+def _device_profile(run, iters, card, what, top=10):
     """Device ms per kernel kind of ``iters`` calls of ``run`` under
     torch.profiler (its own overhead is in the wall time it prints)."""
     import torch
@@ -172,14 +266,14 @@ def _device_profile(run, iters, card, what):
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    kinds, top, launches = {}, [], 0
+    kinds, ranked, launches = {}, [], 0
     for evt in prof.key_averages():
         # kernels and copies only: an operator's entry repeats its kernels'
         # device time
         ms = evt.self_device_time_total / 1e3 / iters
         if evt.device_type == DeviceType.CUDA and ms > 0:
             kinds[_kind(evt.key)] = kinds.get(_kind(evt.key), 0.0) + ms
-            top.append((ms, evt.key))
+            ranked.append((ms, evt.key))
             launches += evt.count
     busy = sum(kinds.values())
     print(f"profile: {what}: wall {wall_ms:.3f} ms, device busy "
@@ -187,7 +281,7 @@ def _device_profile(run, iters, card, what):
           f"kernels and copies; device ms by kind "
           f"{ {k: round(v, 4) for k, v in sorted(kinds.items())} } [{card}]",
           flush=True)
-    for ms, name in sorted(top, reverse=True)[:10]:
+    for ms, name in sorted(ranked, reverse=True)[:top]:
         print(f"profile:   {ms:.4f} ms  {name[:100]}", flush=True)
     return {"wall_ms": wall_ms, "busy_ms": busy, "kinds": kinds}
 
@@ -200,15 +294,19 @@ def profile_embed(engine, rows, card, iters=3):
 
 def _zero_counters():
     from byol_tpu_torch.ops import flash_attention as fa
+    from byol_tpu_torch.ops import fused_augment as fg
     from byol_tpu_torch.ops import fused_update as fu
     fa.LAUNCHES = fu.SEGMENT_NORMS_LAUNCHES = fu.FUSED_APPLY_LAUNCHES = 0
+    fg.LAUNCHES = 0
 
 
 def _read_counters():
-    """(flash_attention, segment_norms, fused_apply) launches."""
+    """(flash_attention, segment_norms, fused_apply, two_view) launches."""
     from byol_tpu_torch.ops import flash_attention as fa
+    from byol_tpu_torch.ops import fused_augment as fg
     from byol_tpu_torch.ops import fused_update as fu
-    return fa.LAUNCHES, fu.SEGMENT_NORMS_LAUNCHES, fu.FUSED_APPLY_LAUNCHES
+    return (fa.LAUNCHES, fu.SEGMENT_NORMS_LAUNCHES, fu.FUSED_APPLY_LAUNCHES,
+            fg.LAUNCHES)
 
 
 def _rn50_segment_map():
@@ -314,7 +412,9 @@ def run_training(card):
     from byol_tpu_torch.cli import build_parser, config_from_args
     from byol_tpu_torch.core.config import resolve
     from byol_tpu_torch.core.precision import get_policy
+    from byol_tpu_torch.data import device_augment as da
     from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.ops import fused_augment as fg
     from byol_tpu_torch.optim.schedules import cosine_ema_decay
     from byol_tpu_torch.training.build import build_tx, step_config
     from byol_tpu_torch.training.steps import make_train_step
@@ -332,17 +432,19 @@ def run_training(card):
     steps = len(result.step_losses)
     print(f"training: {steps} steps in {time.perf_counter() - t0:.1f}s "
           f"(build included), losses {result.step_losses}, launches "
-          f"(flash, segment_norms, fused_apply) = {counts}", flush=True)
+          f"(flash, segment_norms, fused_apply, two_view) = {counts}",
+          flush=True)
     if steps != 3 or not all(map(math.isfinite, result.step_losses)):
         raise AssertionError(f"training: {steps} steps, losses "
                              f"{result.step_losses}")
-    if counts != (0, steps, steps):
+    if counts != (0, steps, steps, steps):
         raise AssertionError(f"training: launches {counts}, want (0, "
-                             f"{steps}, {steps})")
+                             f"{steps}, {steps}, {steps})")
 
     # one more step on the trained state: params move, the target ticks,
     # and the plain unfused chain agrees with the kernels on the same
-    # gradients (so cuDNN's non-determinism does not enter)
+    # gradients (so cuDNN's non-determinism does not enter); the step's
+    # draws are recorded, and its K2 views held against the unfused chain
     state = result.state
     rcfg = resolve(cfg.replace(device=dataclasses.replace(
         cfg.device, num_replicas=1)),
@@ -351,9 +453,17 @@ def run_training(card):
         output_size=loader.output_size, input_shape=loader.input_shape)
     tx, schedule = build_tx(rcfg)
     scfg = step_config(rcfg)
-    train_step = make_train_step(tx, scfg, schedule,
-                                 get_policy(cfg.device.half))
+    drawn = []
+
+    def recording_draws(step, b, h, w):
+        drawn.append(da.step_views(scfg.aug_seed, step, b, h, w,
+                                   scfg.color_jitter_strength))
+        return drawn[-1]
+    policy = get_policy(cfg.device.half)
+    train_step = make_train_step(tx, scfg, schedule, policy,
+                                 draw_views=recording_draws)
     batch = _to_device(next(iter(loader.train_loader)), "cuda")
+    images = batch["images"]
     lr = schedule(state.count)
     tau = cosine_ema_decay(state.ema_step, scfg.total_train_steps,
                            scfg.base_decay)
@@ -382,23 +492,65 @@ def run_training(card):
           f"gradients: max abs err {errs} ok={chain_ok}", flush=True)
     if not (moved > 0 and ema_ok and chain_ok):
         raise AssertionError("training: the fused step is wrong")
-
-    # step time at batch 64, then a device breakdown of 3 steps
-    def step():
-        train_step(state, batch)
-    for _ in range(2):
-        step()
+    views = da.to_device(drawn[-1], "cuda")
+    size = scfg.image_size
+    k2 = fg.fused_two_view(images, size, views,
+                           strength=scfg.color_jitter_strength)
+    chain = da.two_view(images, size, views,
+                        strength=scfg.color_jitter_strength)
     torch.cuda.synchronize()
-    t0_wall = time.perf_counter()
-    for _ in range(10):
-        step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0_wall) * 1e3 / 10
-    print(f"training: batch 64 step {step_ms:.3f} ms = "
-          f"{64 / step_ms * 1e3:.1f} img/s over 10 steps (peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) [{card}]",
+    view_err = max((a - b).abs().max().item() for a, b in zip(k2, chain))
+    print(f"training: step {state.step - 1}'s views, K2 vs the unfused "
+          f"chain on its draws: max abs err {view_err:.3e} (tol {K2_TOL})",
           flush=True)
-    _device_profile(step, 3, card, "resnet50 train step, batch 64, per step")
+    if not view_err <= K2_TOL:
+        raise AssertionError("training: K2's views disagree with the "
+                             "unfused chain")
+
+    # the augmentation alone at batch 64, both ways
+    aug_ms = {
+        "K2 path": _time_ms(lambda: fg.fused_two_view(images, size, views)),
+        "unfused chain": _time_ms(lambda: da.two_view(images, size, views)),
+    }
+    print(f"training: two-view augmentation of a batch of 64, ms: "
+          f"{ {k: round(v, 4) for k, v in aug_ms.items()} } [{card}]",
+          flush=True)
+
+    # step time at batch 64 with K2, the unfused chain and no augmentation
+    # (loader placement, the un-augmented image as both views), in turns
+    plain = dataclasses.replace(scfg, fused_augment=False)
+    bare = dataclasses.replace(scfg, augment_in_step=False,
+                               fused_augment=False)
+    x = images.float() / 255.0
+    arms = {
+        "K2": (make_train_step(tx, scfg, schedule, policy), batch),
+        "unfused chain": (make_train_step(tx, plain, schedule, policy),
+                          batch),
+        "no augmentation": (make_train_step(tx, bare, schedule, policy),
+                            {"view1": x, "view2": x,
+                             "label": batch["label"]}),
+    }
+    times = {name: [] for name in arms}
+    for name in list(arms) + list(arms)[::-1]:
+        fn, b = arms[name]
+        for _ in range(2):
+            fn(state, b)
+        torch.cuda.synchronize()
+        t0_wall = time.perf_counter()
+        for _ in range(10):
+            fn(state, b)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0_wall) * 1e3 / 10)
+    for name, ms in times.items():
+        print(f"training: batch 64 step, {name}: {ms[0]:.3f} / {ms[1]:.3f} "
+              f"ms = {64 / min(ms) * 1e3:.1f} img/s at best, 10 steps each "
+              f"(peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB) [{card}]", flush=True)
+
+    for name, (fn, b) in arms.items():
+        _device_profile(lambda: fn(state, b), 3, card,
+                        f"resnet50 train step, {name}, batch 64, per step",
+                        top=10 if name == "K2" else 0)
     return counts
 
 
@@ -439,8 +591,8 @@ def run_slice(card):
     _zero_counters()
     res = run_closed_loop(embed, service.engine.input_shape, 48, 3, seed=0)
     launches = fa.LAUNCHES
-    if _read_counters()[1:] != (0, 0):
-        raise AssertionError("slice: serving launched a K1 kernel")
+    if _read_counters()[1:] != (0, 0, 0):
+        raise AssertionError("slice: serving launched a K1 or K2 kernel")
     batches = service.meter.total_batches - batches0
     snap = service.meter.snapshot(time.perf_counter(), reset=False)
     print(f"slice: {res.summary()} [{card}]", flush=True)
@@ -523,6 +675,7 @@ def main() -> int:
 
     flash_rows = check_flash(card)
     k1_rows = check_fused_update(card)
+    k2_rows = check_two_view(card)
     launches = run_slice(card)
     torch.cuda.empty_cache()
     train_counts = run_training(card)
@@ -558,6 +711,18 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "elements": row["elements"],
             "ok": row["ok"]})
+    k2 = k2_rows[0]                      # the training shape
+    kernels.append({
+        "name": "two_view", "route": "cuda",
+        "source": "byol_tpu_torch/ops/csrc/fused_augment.cu",
+        "replaces": "byol_tpu/ops/fused_augment.py:179",
+        "launches": train_counts[3],
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": None, "einsum_crop_ms": k2["einsum_crop_ms"],
+        "shape": [64, 224, 224, 3],
+        "ok": all(r["ok"] for r in k2_rows)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -88,7 +88,7 @@ def _as_numpy(state):
             "step": int(state.step), "ema_step": int(state.ema_step)}
 
 
-def _torch_side(half, scfg_kw, jax_state):
+def _torch_side(half, scfg_kw, jax_state, draw_views=None):
     dtype = torch.bfloat16 if half else torch.float32
     backbone = torch_resnet.ResNet(stage_sizes=[1, 1],
                                    block_cls=torch_resnet.Bottleneck, width=8,
@@ -103,8 +103,8 @@ def _torch_side(half, scfg_kw, jax_state):
         "lars_momentum", base_lr=BASE_LR, global_batch_size=BATCH,
         weight_decay=WD, total_units=TOTAL, warmup_units=0)
     scfg = torch_steps.StepConfig(total_train_steps=TOTAL, **scfg_kw)
-    return state, torch_steps.make_train_step(tx, scfg, sched,
-                                              get_policy(half)), scfg
+    return state, torch_steps.make_train_step(
+        tx, scfg, sched, get_policy(half), draw_views=draw_views), scfg
 
 
 def _torch_batch(batch):
@@ -170,6 +170,36 @@ def test_three_steps_match_jax(case):
                                    err_msg=key, **TOL)
 
 
+RAW, AUG_SEED = 40, 13
+
+
+@pytest.mark.parametrize("fused_augment", [False, True])
+def test_three_augmented_steps_match_jax(fused_augment):
+    """In-step augmentation from raw uint8 40 px batches to 32 px views,
+    the unfused chain or K2's plain version, on JAX's draws of each
+    step's ``augment_keys`` (JAX's fused path runs its Pallas kernel in
+    interpret mode)."""
+    from tests.test_torch_augment import jax_step_views
+    kw = dict(PARITY, fused_update=True, augment_in_step=True,
+              fused_augment=fused_augment, image_size=SIZE,
+              aug_seed=AUG_SEED)
+    _, jstate, jstep, _ = _jax_side(False, kw, "reference")
+    state, step, _ = _torch_side(False, kw, jstate,
+                                 draw_views=jax_step_views(AUG_SEED))
+    rng = np.random.RandomState(9)
+    for i in range(3):
+        batch = {"images": rng.randint(0, 256, (BATCH, RAW, RAW, 3)).astype(
+                     np.uint8),
+                 "label": rng.randint(0, CLASSES, BATCH).astype(np.int32)}
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        got = step(state, _torch_batch(batch))
+        for key in METRICS:
+            np.testing.assert_allclose(float(got[key]), float(jm[key]),
+                                       err_msg=f"step {i} {key}", **TOL)
+    _assert_states_match(state, jstate)
+
+
 def test_bf16_step_loss_matches_jax():
     kw = dict(fused_update=True, fuse_views=True)
     _, jstate, jstep, _ = _jax_side(True, kw, "copy")
@@ -226,9 +256,8 @@ def test_resolve_matches_jax(batch, replicas, samples, epochs):
 
 @pytest.mark.parametrize("overrides", [
     dict(device=dict(zero1="on")), dict(device=dict(flat_resident="on")),
-    dict(task=dict(fused_augment="on", augment_placement="step")),
-    dict(task=dict(augment_placement="step")), dict(optim=dict(accum_steps=2)),
-    dict(device=dict(model_parallel=2))])
+    dict(device=dict(telemetry="epoch")), dict(model=dict(remat=True)),
+    dict(optim=dict(accum_steps=2)), dict(device=dict(model_parallel=2))])
 def test_resolve_refuses_what_is_not_ported(overrides):
     cfg = torch_config.Config()
     for section, values in overrides.items():
