@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernel library.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, which :mod:`ctypes`
-loads.  Nothing here includes PyTorch's headers, so a build takes seconds.
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and the objects
+are linked into ONE shared library with a plain C interface, which
+:mod:`ctypes` loads.  Nothing here includes PyTorch's headers, so a build
+takes seconds.
 
 - The build runs at first use (the first kernel launch on a CUDA tensor),
   never at import: the CPU tests import every module of the package.
@@ -29,8 +31,9 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -74,18 +77,37 @@ def build() -> Path:
         fcntl.flock(lock_file, fcntl.LOCK_EX)
         if out.exists():            # another process built it meanwhile
             return out
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources() if s.suffix == ".cu")]
+        tag = f"{out.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs, cmds = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            objs.append(BUILD_DIR / f"{tag}.{src.stem}.o")
+            cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(objs[-1]),
+                         str(src)])
+        tmp = out.with_name(f"{tag}.so.tmp")
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                *(str(o) for o in objs)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        outs = [p.communicate() for p in procs]     # all run meanwhile
+        runs = [(c, p.returncode, o, e)
+                for c, p, (o, e) in zip(cmds, procs, outs)]
+        if all(rc == 0 for _, rc, _, _ in runs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            runs.append((link, proc.returncode, proc.stdout, proc.stderr))
         build_seconds = time.perf_counter() - t0
         build_log = out.with_suffix(".log")
-        build_log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n"
-                f"{proc.stderr[-6000:]}")
+        build_log.write_text("".join(
+            " ".join(c) + "\n" + o + e for c, _, o, e in runs))
+        for o in objs:
+            o.unlink(missing_ok=True)
+        failed = [(c, rc, e) for c, rc, _, e in runs if rc != 0]
+        if failed:
+            c, rc, e = failed[0]
+            raise RuntimeError(f"nvcc failed with code {rc} ({c[-1]}):\n"
+                               f"{e[-6000:]}")
         os.replace(tmp, out)
     return out
 

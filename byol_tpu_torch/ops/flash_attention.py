@@ -11,6 +11,9 @@ states the bound at the serving shape and what the design does about it.
 - :func:`flash_attention` dispatches on the device: a CPU tensor goes to the
   plain version, a CUDA tensor to the kernel.  A build or launch failure
   raises; nothing falls back.
+- :func:`launch_plan` decides, from ``(B*H, S)`` and the card's SM count
+  alone, how the bf16 kernel cuts the query rows of a head over blocks;
+  :func:`plan_rows` lists the rows each block takes.
 - :data:`LAUNCHES` counts kernel launches, so a run can show that its main
   path went through the kernel.
 
@@ -20,6 +23,8 @@ gradient are refused until the ViT training slice adds a backward.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -28,6 +33,11 @@ from byol_tpu_torch.ops import common
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535          # batch * heads rides the grid's y dimension
+# the bf16 kernel's geometry (csrc/flash_attention.cu)
+RESIDENT_MAX_SEQ = 256       # K/V of a whole head stay in shared memory
+RING_ROWS = 128              # query rows of a block past that (8 warps x 16)
+MAX_SPLITS = 4               # blocks a resident head's query rows may take
+GROUP_ROWS = 32              # query rows of a resident warp (2 m-tiles)
 
 # kernel launches since the count was last set to 0 (only the wrapper's
 # launch adds to it)
@@ -43,6 +53,40 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.softmax(scores, dim=-1)
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+class Plan(NamedTuple):
+    """How the bf16 kernel covers one head: ``blocks_per_head`` work items
+    (blocks on the ring) of ``rows_per_block`` query rows (resident: whole
+    32-row groups, a warp's two 16-row m-tiles; 128 on the ring), K/V
+    ``resident`` in shared memory or streamed through the ring."""
+
+    resident: bool
+    blocks_per_head: int
+    rows_per_block: int
+
+
+def launch_plan(bh: int, s: int, sms: int) -> Plan:
+    """The bf16 kernel's cut of the query rows for ``bh`` heads of ``s``
+    rows on a card of ``sms`` SMs (the persistent grid's blocks).  Up to
+    ``RESIDENT_MAX_SEQ`` a work item is a whole head, unless ``bh`` heads
+    are fewer than the SMs: then each head's 32-row groups are split over
+    up to ``MAX_SPLITS`` items (each loads all of K/V, mostly from L2).
+    Past it, blocks of ``RING_ROWS`` rows."""
+    if s <= RESIDENT_MAX_SEQ:
+        groups = -(-s // GROUP_ROWS)
+        splits = max(1, min(MAX_SPLITS, groups, -(-sms // bh)))
+        rows = -(-groups // splits) * GROUP_ROWS
+        return Plan(True, -(-s // rows), rows)
+    return Plan(False, -(-s // RING_ROWS), RING_ROWS)
+
+
+def plan_rows(plan: Plan, s: int) -> List[Tuple[int, int]]:
+    """The query rows ``[start, stop)`` of each work item of one head, as
+    the kernel derives them from the item's index and
+    ``rows_per_block``."""
+    r = plan.rows_per_block
+    return [(i * r, min(s, (i + 1) * r)) for i in range(plan.blocks_per_head)]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -80,8 +124,15 @@ def _rows_16b_aligned(t: torch.Tensor) -> bool:
 
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [
-    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA card: the bf16 kernel's persistent grid, and the
+    count :func:`launch_plan` fills."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -98,8 +149,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     b, h, s, d = q.shape
+    sms = sm_count(q.device)
+    plan = launch_plan(b * h, s, sms)
     if q.dtype == torch.bfloat16:
-        # the bf16 kernel stages rows with 16-byte loads
+        # the bf16 kernel stages rows with 16-byte copies
         q, k, v = (t if _rows_16b_aligned(t)
                    else t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
@@ -108,7 +161,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
     err = common.entry(_ENTRY, _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        b, h, s, d, int(q.dtype == torch.bfloat16),
+        b, h, s, d, int(q.dtype == torch.bfloat16), plan.rows_per_block, sms,
         torch.cuda.current_stream(q.device).cuda_stream)
     common.check(err, "flash_attention")
     LAUNCHES += 1

@@ -1,5 +1,5 @@
 """Fused uint8 -> two-view augmentation: the Hopper kernel K2, its plain
-version, the wrapper, and the weight build around it.
+version, the wrapper, and the crop weights in dense and band form.
 
 Counterpart of byol_tpu/ops/fused_augment.py (the Pallas
 ``_two_view_kernel``).  The CUDA kernel is ``csrc/fused_augment.cu``; its
@@ -7,26 +7,33 @@ header states its bound at the ResNet-50 training shape and what the
 design does about it.
 
 - :func:`_weight_mat` / :func:`crop_weight_mats`: a crop window as the
-  (in, size) antialiased triangle weights jax's ``scale_and_translate``
-  builds, batched over images, fp32 throughout; the horizontal flip is a
-  column permutation of ``wx``.  :func:`view_kernel_inputs` packs one
-  view's kernel operands, ``prm`` in the ``_JITTER, _FB, _FC, _FS,
-  _THETA, _GRAY`` layout.
-- :func:`two_view_reference` is the plain PyTorch version of K2: per image
-  and view, the crop contraction at fp32 and a clip, the gated color
+  dense (in, size) antialiased triangle weights jax's
+  ``scale_and_translate`` builds, batched over images, fp32 throughout;
+  the horizontal flip is a column permutation of ``wx``.
+- :func:`crop_bands` / :func:`crop_window_bands`: the same weights as
+  bands, a window of :func:`band_taps` source indices per output index
+  that holds every non-zero tap.  K2 builds them in the kernel with this
+  arithmetic; no weight tensor reaches the card.
+- :func:`view_kernel_inputs` packs one view's kernel operands: ``crop``
+  in the ``_Y0, _X0, _CH, _CW, _FLIP`` layout and ``prm`` in the
+  ``_JITTER, _FB, _FC, _FS, _THETA, _GRAY`` layout.
+- :func:`two_view_reference` is the plain PyTorch version of K2 on the
+  kernel's operands: per image and view, the dense weights of the crop
+  window, the crop contraction at fp32 and a clip, the gated color
   jitter, the gated grayscale.
 - :func:`two_view` runs the plain version for CPU tensors, launches K2
   for CUDA tensors, and raises otherwise: nothing falls back.
   :data:`LAUNCHES` counts its launches.
-- :func:`fused_two_view` is the entry point: both views' weights built on
-  the device from pre-drawn parameters, one K2 launch, then the blur tail
-  (every view blurred, selected by its gate, clipped).  The blur was plain
-  XLA outside the Pallas kernel, and it is a grouped cuDNN conv here.
+- :func:`fused_two_view` is the entry point: both views' scalars packed
+  from pre-drawn parameters, one K2 launch, then the blur tail (every
+  view blurred, selected by its gate, clipped).  The blur was plain XLA
+  outside the Pallas kernel, and it is a grouped cuDNN conv here.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import math
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +41,9 @@ import torch
 from byol_tpu_torch.data import device_augment
 from byol_tpu_torch.ops import common
 
-# per-view scalar vector of the kernel (prm); gates ride as 0/1 fp32
+# per-view scalar vectors of the kernel (crop, prm); gates ride as 0/1 fp32
+_Y0, _X0, _CH, _CW, _FLIP = range(5)
+_NCROP = 5
 _JITTER, _FB, _FC, _FS, _THETA, _GRAY = range(6)
 _NPARAM = 6
 
@@ -46,8 +55,9 @@ _WEIGHT_EPS = 1000.0 * float(np.finfo(np.float32).eps)
 LAUNCHES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-_PARTS = 4                   # blocks per view (kParts in the kernel)
+_ARGTYPES = [_P, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]
+MAX_TAPS = 16                # the kernel's band window (kMaxTaps)
+PARTS = 8                    # blocks per view (kParts; the kernel checks)
 
 
 def rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
@@ -81,11 +91,23 @@ def _weight_mat(in_size: int, out_size: int, scale: torch.Tensor,
     return torch.where(inside, weights, 0.0)
 
 
-def crop_weight_mats(p: device_augment.ViewParams, h: int, w: int,
+class CropWindow(NamedTuple):
+    """A view's crop window for a batch: (B,) fp32 tensors, the flip gate
+    as 0/1 (``ViewParams`` carries the same fields)."""
+
+    y0: torch.Tensor
+    x0: torch.Tensor
+    ch: torch.Tensor
+    cw: torch.Tensor
+    flip: torch.Tensor
+
+
+def crop_weight_mats(p, h: int, w: int,
                      size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One view's crop windows as ``wy`` (B, h, size) and ``wx`` (B, w,
-    size), the flip folded into ``wx``'s column order (exact: a column
-    permutation commutes with the contraction and the clip)."""
+    """One view's crop windows (a ``CropWindow`` or ``ViewParams``) as
+    ``wy`` (B, h, size) and ``wx`` (B, w, size), the flip folded into
+    ``wx``'s column order (exact: a column permutation commutes with the
+    contraction and the clip)."""
     sy, sx = rdiv(size, p.ch), rdiv(size, p.cw)
     wy = _weight_mat(h, size, sy, -p.y0 * sy)
     wx = _weight_mat(w, size, sx, -p.x0 * sx)
@@ -93,13 +115,62 @@ def crop_weight_mats(p: device_augment.ViewParams, h: int, w: int,
     return wy, wx
 
 
-def view_kernel_inputs(p: device_augment.ViewParams, h: int, w: int,
-                       size: int):
-    """One view's kernel operands ``(wy, wx, prm)`` and the blur gate and
+def band_taps(in_size: int, out_size: int) -> int:
+    """The band window: source indices per output index that hold every
+    non-zero tap of a window inside the image (extent <= in_size, so
+    kernel_scale <= max(1, in_size / out_size))."""
+    kernel_scale = max(1.0, in_size / out_size)
+    return min(in_size, math.floor(2 * kernel_scale) + 3)
+
+
+def crop_bands(in_size: int, out_size: int, scale: torch.Tensor,
+               translation: torch.Tensor, taps: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_weight_mat` as bands: ``first`` (B, out_size) int64 and
+    ``weights`` (B, out_size, taps) fp32, the weight of source index
+    ``first + t`` in column ``t`` (zero where the triangle is).  The same
+    fp32 operations in the same order as the dense matrix, but the column
+    total summed over the window in tap order, as K2 sums it; the window
+    ``[first, first + taps)`` lies inside ``[0, in_size)``."""
+    f32 = torch.float32
+    inv_scale = rdiv(1.0, scale.to(f32).reshape(-1, 1))
+    translation = translation.to(f32).reshape(-1, 1)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample_f = ((torch.arange(out_size, dtype=f32, device=scale.device)
+                 + 0.5) * inv_scale - translation * inv_scale - 0.5)
+    first = torch.floor(sample_f - kernel_scale).long().clamp(
+        0, in_size - taps)
+    src = first.unsqueeze(-1) + torch.arange(taps, device=scale.device)
+    x = (sample_f.unsqueeze(-1) - src.to(f32)).abs() / kernel_scale.unsqueeze(
+        -1)
+    weights = torch.clamp(1 - x.abs(), min=0.0)
+    total = weights[..., 0]
+    for t in range(1, taps):
+        total = total + weights[..., t]
+    total = total.unsqueeze(-1)
+    weights = torch.where(total.abs() > _WEIGHT_EPS,
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return first, torch.where(inside.unsqueeze(-1), weights, 0.0)
+
+
+def crop_window_bands(p, h: int, w: int, size: int):
+    """:func:`crop_weight_mats` as bands: ``(row_first, row_weights,
+    col_first, col_weights)``, the flip folded into the columns' order."""
+    sy, sx = rdiv(size, p.ch), rdiv(size, p.cw)
+    ry = crop_bands(h, size, sy, -p.y0 * sy, band_taps(h, size))
+    cf, cwt = crop_bands(w, size, sx, -p.x0 * sx, band_taps(w, size))
+    flip = p.flip.reshape(-1, 1) > 0.5
+    return (*ry, torch.where(flip, cf.flip(1), cf),
+            torch.where(flip.unsqueeze(-1), cwt.flip(1), cwt))
+
+
+def view_kernel_inputs(p: device_augment.ViewParams):
+    """One view's kernel operands ``(crop, prm)`` and the blur gate and
     sigma the tail consumes."""
-    wy, wx = crop_weight_mats(p, h, w, size)
+    crop = torch.stack([p.y0, p.x0, p.ch, p.cw, p.flip], dim=1)
     prm = torch.stack([p.jitter, p.fb, p.fc, p.fs, p.theta, p.gray], dim=1)
-    return wy, wx, prm, p.blur, p.sigma
+    return crop, prm, p.blur, p.sigma
 
 
 def crop_contract(images: torch.Tensor, wy: torch.Tensor,
@@ -111,15 +182,21 @@ def crop_contract(images: torch.Tensor, wy: torch.Tensor,
     return torch.einsum("nvawc,nvwb->nvabc", t, wx).contiguous()
 
 
-def two_view_reference(images: torch.Tensor, wy: torch.Tensor,
-                       wx: torch.Tensor, prm: torch.Tensor, *, hue: bool
+def two_view_reference(images: torch.Tensor, crop: torch.Tensor,
+                       prm: torch.Tensor, *, size: int, hue: bool
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K2: both pre-blur views of every image."""
+    """Plain version of K2 on its operands: both pre-blur views of every
+    image, the crop windows as dense weights."""
     x = images.float()
     if images.dtype == torch.uint8:
         x = x / 255.0
+    _, h, w, _ = images.shape
+    wy, wx = crop_weight_mats(CropWindow(*crop.reshape(-1, _NCROP).unbind(1)),
+                              h, w, size)
+    b = images.shape[0]
+    wy, wx = wy.reshape(b, 2, h, size), wx.reshape(b, 2, w, size)
     crop = crop_contract(x, wy, wx).clamp(0.0, 1.0)
-    b, _, s, _, c = crop.shape
+    s, c = crop.shape[2], crop.shape[4]
     v = crop.reshape(2 * b, s, s, c)
     pr = prm.reshape(2 * b, _NPARAM)
     gate = lambda k: pr[:, k].reshape(-1, 1, 1, 1) > 0.5
@@ -130,7 +207,7 @@ def two_view_reference(images: torch.Tensor, wy: torch.Tensor,
     return v[:, 0].contiguous(), v[:, 1].contiguous()
 
 
-def _check(images, wy, wx, prm) -> None:
+def _check(images, crop, prm, size) -> None:
     if images.dim() != 4 or images.shape[-1] != 3:
         raise ValueError(f"two_view: images must be (B, H, W, 3), got "
                          f"{tuple(images.shape)}")
@@ -138,9 +215,7 @@ def _check(images, wy, wx, prm) -> None:
         raise ValueError(f"two_view: images must be uint8 or float32, got "
                          f"{images.dtype}")
     b, h, w, _ = images.shape
-    size = wy.shape[-1] if wy.dim() == 4 else -1
-    for name, t, shape in (("wy", wy, (b, 2, h, size)),
-                           ("wx", wx, (b, 2, w, size)),
+    for name, t, shape in (("crop", crop, (b, 2, _NCROP)),
                            ("prm", prm, (b, 2, _NPARAM))):
         if (tuple(t.shape) != shape or t.dtype != torch.float32
                 or t.device != images.device):
@@ -150,31 +225,35 @@ def _check(images, wy, wx, prm) -> None:
                 f"{t.device}")
     if size < 1 or b < 1:
         raise ValueError(f"two_view: empty batch or view size {size}")
+    taps = max(band_taps(h, size), band_taps(w, size))
+    if taps > MAX_TAPS:
+        raise ValueError(
+            f"two_view: {h}x{w} -> {size} needs bands of {taps} taps; the "
+            f"kernel takes up to {MAX_TAPS} (a downsampling ratio below "
+            f"{(MAX_TAPS - 2) / 2})")
 
 
-def two_view(images: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
-             prm: torch.Tensor, *, hue: bool
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: (B, H, W, 3) uint8 or fp32 [0, 1] images, ``wy`` (B, 2, H, S),
-    ``wx`` (B, 2, W, S) and ``prm`` (B, 2, 6) -> two (B, S, S, 3) fp32
-    views, contiguous NHWC (channels_last NCHW memory)."""
+def two_view(images: torch.Tensor, crop: torch.Tensor, prm: torch.Tensor,
+             *, size: int, hue: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: (B, H, W, 3) uint8 or fp32 [0, 1] images, ``crop`` (B, 2, 5)
+    windows inside the image and ``prm`` (B, 2, 6) -> two (B, size, size,
+    3) fp32 views, contiguous NHWC (channels_last NCHW memory)."""
     global LAUNCHES
-    _check(images, wy, wx, prm)
+    _check(images, crop, prm, size)
     if images.device.type == "cpu":
-        return two_view_reference(images, wy, wx, prm, hue=hue)
+        return two_view_reference(images, crop, prm, size=size, hue=hue)
     if images.device.type != "cuda":
         raise ValueError(f"two_view: no kernel for device {images.device}")
     b, h, w, _ = images.shape
-    s = wy.shape[-1]
-    images, wy, wx, prm = (t.contiguous() for t in (images, wy, wx, prm))
-    o1, o2 = (torch.empty((b, s, s, 3), dtype=torch.float32,
+    images, crop, prm = (t.contiguous() for t in (images, crop, prm))
+    o1, o2 = (torch.empty((b, size, size, 3), dtype=torch.float32,
                           device=images.device) for _ in range(2))
-    part_sum = torch.empty((b, 2, _PARTS), dtype=torch.float64,
+    part_sum = torch.empty((b, 2, PARTS), dtype=torch.float64,
                            device=images.device)
     err = common.entry("byol_two_view", _ARGTYPES)(
-        images.data_ptr(), int(images.dtype == torch.uint8), wy.data_ptr(),
-        wx.data_ptr(), prm.data_ptr(), o1.data_ptr(), o2.data_ptr(),
-        part_sum.data_ptr(), b, h, w, s, int(hue),
+        images.data_ptr(), int(images.dtype == torch.uint8), crop.data_ptr(),
+        prm.data_ptr(), o1.data_ptr(), o2.data_ptr(), part_sum.data_ptr(),
+        PARTS, b, h, w, size, band_taps(h, size), band_taps(w, size), int(hue),
         torch.cuda.current_stream(images.device).cuda_stream)
     common.check(err, "two_view")
     LAUNCHES += 1
@@ -188,11 +267,10 @@ def fused_two_view(images: torch.Tensor, size: int,
     """The fused counterpart of ``device_augment.two_view`` on the same
     draws (``views``, on the images' device): one K2 launch for both views
     of every image, then the blur tail."""
-    _, h, w, _ = images.shape
-    per_view = [view_kernel_inputs(p, h, w, size) for p in views]
-    wy, wx, prm = (torch.stack([per_view[0][i], per_view[1][i]], dim=1)
-                   for i in range(3))
-    pre = two_view(images, wy, wx, prm, hue=0.2 * strength > 0)
+    per_view = [view_kernel_inputs(p) for p in views]
+    crop, prm = (torch.stack([per_view[0][i], per_view[1][i]], dim=1)
+                 for i in range(2))
+    pre = two_view(images, crop, prm, size=size, hue=0.2 * strength > 0)
     kblur = int(0.1 * size)
 
     def tail(v_pre, gate, sigma):
@@ -200,5 +278,5 @@ def fused_two_view(images: torch.Tensor, size: int,
         return torch.where(gate.reshape(-1, 1, 1, 1) > 0.5, blurred,
                            v_pre).clamp(0.0, 1.0)
 
-    v1, v2 = (tail(v, pv[3], pv[4]) for v, pv in zip(pre, per_view))
+    v1, v2 = (tail(v, pv[2], pv[3]) for v, pv in zip(pre, per_view))
     return v1, v2

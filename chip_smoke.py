@@ -10,20 +10,28 @@ Phases (any failure raises, and the script exits nonzero):
    (nvidia-smi) and turns TF32 off for the comparisons;
 2. build   — nvcc builds the kernel library from byol_tpu_torch/ops/csrc/;
 3. kernels — each kernel, at the shapes its path gives it, is held against
-   its plain PyTorch version on the same inputs and timed with CUDA events
-   beside the plain version, one PyTorch library call of the same function
-   where there is one (a yardstick the port never calls) and its bound: the
-   larger of bytes / 3.35 TB/s and operations / peak rate (989 TFLOP/s
-   bf16, 67 TFLOP/s fp32 off the tensor cores).  Flash attention (K3):
-   fp32 1e-5, bf16 2e-2.  The fused LARS+EMA update (K1a segment norms, K1b
+   its plain PyTorch version on the same inputs and timed as device time
+   (CUDA events around replays of a CUDA graph of 20 calls; the eager
+   time beside it) beside the plain version, one PyTorch library call of
+   the same function where there is one (a yardstick the port never
+   calls) and its bound: the larger of bytes / 3.35 TB/s and operations /
+   peak rate (989 TFLOP/s bf16, 67 TFLOP/s fp32 off the tensor cores).
+   Flash attention (K3) at S = 197 (buckets 8 and 64) and at S = 1, 65,
+   208, 256, 257 and 577, each path of the kernel: fp32 1e-5, bf16 2e-2.
+   The fused LARS+EMA update (K1a segment norms, K1b
    fused apply) at the ResNet-50 BYOL segment layout (173 leaves,
    35,089,024 padded elements), both EMA modes: fp32 rtol 1e-5, atol 1e-6
    on p, m, t and the trust vector; K1a twice, bitwise equal.  The fused
    two-view augmentation (K2) at batch 64, uint8 224 -> 224 on the port's
    draws, and at batch 8 for 256 -> 224 (the downsampling arm), fp32
    input, strength 0 and forced gates: max abs err 1e-5 on both views,
-   bitwise repeatable; the crop contraction alone as two fp32 einsums is
-   timed beside it;
+   bitwise repeatable; its bound counts the band walk (the image read
+   once, the views written once, 2 FLOP per non-zero tap), the dense
+   contraction's bound printed beside it as superseded; the crop
+   contraction alone as two fp32 einsums is timed beside it.  Then K2's
+   two passes launch by launch at the training shape, with L2 left as
+   the previous call left it, flushed, or holding the image, and the
+   clocks nvidia-smi reads meanwhile;
 4. serving — ViT-B/16 (224 px, bf16, attn_impl='flash', random weights from
    the seed, buckets 8..64) through ``build_service``: warmup, then 48
    closed-loop requests from 3 streams with every launch counter set to 0
@@ -75,6 +83,9 @@ RN50_PADDED = 35_089_024           # the ResNet-50 BYOL segment layout
 
 
 def _time_ms(fn, iters=20, warmup=3):
+    """ms per call of ``fn`` launched eagerly, CUDA events around
+    ``iters`` calls: the host's launch cost is in it wherever the host
+    enqueues more slowly than the card runs."""
     import torch
     for _ in range(warmup):
         fn()
@@ -88,33 +99,65 @@ def _time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def _qkv_views(batch, head_dim, dtype, seed):
+def _device_ms(fn, iters=20, warmup=3):
+    """Device ms per call of ``fn``: ``iters`` calls captured into one CUDA
+    graph, replayed, CUDA events around the replays.  The kernels run back
+    to back, so the host's launch cost is left out of the kernel's time
+    and of its yardsticks' alike."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * iters)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _qkv_views(batch, head_dim, dtype, seed, seq=SEQ):
     """q, k, v as the ViT hands them to attention: (B, H, S, D) views of
     one (B, S, 3, H, D) projection output."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((batch, SEQ, 3, HEADS, head_dim), generator=gen,
+    qkv = torch.randn((batch, seq, 3, HEADS, head_dim), generator=gen,
                       device="cuda", dtype=torch.float32).to(dtype)
     return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
 
 
 def check_flash(card):
-    """Kernel vs plain version at the slice's shapes; returns the
+    """Kernel vs plain version at the slice's shapes (S = 197 at buckets 8
+    and 64) and at the sequence lengths that take the kernel's other
+    paths: one m-tile (S = 1), a split head (65), keys ending inside a
+    64-key chunk on a 16-row edge (208), a full resident head (256), the
+    ring (257, and 577 = ViT-B/16 at 384 px); returns the
     per-shape results."""
     import torch
     import torch.nn.functional as F
     from byol_tpu_torch.ops import flash_attention as fa
 
     rows = []
-    for batch, head_dim, dtype in ((8, 64, torch.bfloat16),
-                                   (64, 64, torch.bfloat16),
-                                   (8, 64, torch.float32),
-                                   (64, 64, torch.float32),
-                                   (8, 32, torch.bfloat16),
-                                   (8, 128, torch.bfloat16),
-                                   (8, 32, torch.float32)):
+    bf16, f32 = torch.bfloat16, torch.float32
+    for batch, seq, head_dim, dtype in (
+            (8, SEQ, 64, bf16), (64, SEQ, 64, bf16), (8, SEQ, 64, f32),
+            (64, SEQ, 64, f32), (8, SEQ, 32, bf16), (8, SEQ, 128, bf16),
+            (8, SEQ, 32, f32), (8, 1, 64, bf16), (8, 65, 64, bf16),
+            (8, 208, 64, bf16), (8, 256, 64, bf16), (8, 257, 64, bf16),
+            (8, 577, 64, bf16)):
         name = str(dtype).split(".")[-1]
-        q, k, v = _qkv_views(batch, head_dim, dtype, seed=batch + head_dim)
+        q, k, v = _qkv_views(batch, head_dim, dtype, seed=batch + head_dim,
+                             seq=seq)
         out = fa.flash_attention(q, k, v)
         ref = fa.flash_attention_reference(q, k, v)
         torch.cuda.synchronize()
@@ -122,18 +165,23 @@ def check_flash(card):
         ok = bool(torch.allclose(out.float(), ref.float(), rtol=TOL[name],
                                  atol=TOL[name]))
         elt = q.element_size()
-        n_bytes = 4 * batch * HEADS * SEQ * head_dim * elt
-        flops = 4 * batch * HEADS * SEQ * SEQ * head_dim
+        n_bytes = 4 * batch * HEADS * seq * head_dim * elt
+        flops = 4 * batch * HEADS * seq * seq * head_dim
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[name] * 1e3
+        plan = fa.launch_plan(batch * HEADS, seq, fa.sm_count(q.device))
         row = {
-            "shape": [batch, HEADS, SEQ, head_dim], "dtype": name,
+            "shape": [batch, HEADS, seq, head_dim], "dtype": name,
+            "plan": (("resident" if plan.resident else "ring")
+                     + f" {plan.blocks_per_head}x{plan.rows_per_block} rows"
+                     if name == "bfloat16" else "fp32 64-row tiles"),
             "max_abs_err": err, "tol": TOL[name], "ok": ok,
-            "ms": _time_ms(lambda: fa.flash_attention(q, k, v)),
-            "plain_ms": _time_ms(
+            "ms": _device_ms(lambda: fa.flash_attention(q, k, v)),
+            "plain_ms": _device_ms(
                 lambda: fa.flash_attention_reference(q, k, v)),
-            "library_ms": _time_ms(
+            "library_ms": _device_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v)),
+            "eager_ms": _time_ms(lambda: fa.flash_attention(q, k, v)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
@@ -146,7 +194,7 @@ def check_flash(card):
     return rows
 
 
-def _k2_operands(b, raw, size, u8, strength, gates, seed):
+def _k2_operands(b, raw, u8, strength, gates, seed):
     """Images and K2 operands on the card: draws from the port's stream
     of step ``seed`` (gates forced to 0 or 1 when ``gates`` is given)."""
     import torch
@@ -163,10 +211,28 @@ def _k2_operands(b, raw, size, u8, strength, gates, seed):
                         device="cuda", dtype=torch.uint8)
     if not u8:
         img = img.float() / 255.0
-    per_view = [fa.view_kernel_inputs(p, raw, raw, size) for p in views]
-    wy, wx, prm = (torch.stack([per_view[0][i], per_view[1][i]], dim=1)
-                   for i in range(3))
-    return img, wy, wx, prm
+    per_view = [fa.view_kernel_inputs(p) for p in views]
+    crop, prm = (torch.stack([per_view[0][i], per_view[1][i]], dim=1)
+                 for i in range(2))
+    return img, crop, prm
+
+
+def _k2_band_flops(crop, raw, size):
+    """The FLOPs of the band walk on these windows: 2 per non-zero tap of
+    the height pass (each output row, over the crop's source columns x 3)
+    and of the width pass (each output pixel x 3)."""
+    import torch
+    from byol_tpu_torch.ops import fused_augment as fa
+    window = fa.CropWindow(*crop.reshape(-1, 5).unbind(1))
+    _, rw, cf, cw = fa.crop_window_bands(window, raw, raw, size)
+    nz = cw != 0
+    cols = cf.unsqueeze(-1) + torch.arange(cw.shape[-1], device=cw.device)
+    lo = torch.where(nz, cols, raw).amin(dim=(1, 2))
+    hi = torch.where(nz, cols, -1).amax(dim=(1, 2))
+    span = (hi - lo + 1).clamp(min=0)
+    macs = ((rw != 0).sum(-1).sum(-1) * span * 3
+            + size * nz.sum(-1).sum(-1) * 3)
+    return 2 * int(macs.sum())
 
 
 def check_two_view(card):
@@ -187,35 +253,50 @@ def check_two_view(card):
             ("batch 8 uint8 gates all off (crop only)", 8, 224, True, 1.0,
              0)):
         size = 224
-        img, wy, wx, prm = _k2_operands(b, raw, size, u8, strength, gates,
-                                           seed=len(rows))
+        img, crop, prm = _k2_operands(b, raw, u8, strength, gates,
+                                      seed=len(rows))
         hue = 0.2 * strength > 0
-        out = fa.two_view(img, wy, wx, prm, hue=hue)
-        ref = fa.two_view_reference(img, wy, wx, prm, hue=hue)
+        kw = dict(size=size, hue=hue)
+        out = fa.two_view(img, crop, prm, **kw)
+        ref = fa.two_view_reference(img, crop, prm, **kw)
         torch.cuda.synchronize()
         err = max((o - r).abs().max().item() for o, r in zip(out, ref))
         ok = err <= K2_TOL and all(o.shape == (b, size, size, 3) and
                                    bool(torch.isfinite(o).all())
                                    for o in out)
-        again = fa.two_view(img, wy, wx, prm, hue=hue)
+        again = fa.two_view(img, crop, prm, **kw)
         bitwise = all(torch.equal(a, o) for a, o in zip(again, out))
+        # the bound: the image read once, the views written once, the
+        # scalars; the band walk's FLOPs on these windows.  The first
+        # design's dense figure beside it (its weights read, the dense
+        # contraction's FLOPs), superseded.
         n_bytes = (img.numel() * img.element_size()
-                   + 4 * (wy.numel() + wx.numel() + prm.numel())
+                   + 4 * (crop.numel() + prm.numel())
                    + 2 * 4 * b * size * size * 3)
-        flops = b * 2 * (2 * 3 * size * raw * (raw + size))
+        flops = _k2_band_flops(crop, raw, size)
+        dense_bytes = n_bytes + 4 * 2 * b * size * 2 * raw
+        dense_flops = b * 2 * (2 * 3 * size * raw * (raw + size))
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        window = fa.CropWindow(*crop.reshape(-1, 5).unbind(1))
+        wy, wx = (t.reshape(b, 2, raw, size)
+                  for t in fa.crop_weight_mats(window, raw, raw, size))
         x = img.float() / 255.0 if u8 else img
         row = {
             "case": name, "max_abs_err": err, "tol": K2_TOL, "ok": ok,
             "bitwise_repeatable": bitwise,
-            "ms": _time_ms(lambda: fa.two_view(img, wy, wx, prm, hue=hue)),
-            "plain_ms": _time_ms(lambda: fa.two_view_reference(
-                img, wy, wx, prm, hue=hue)),
-            "einsum_crop_ms": _time_ms(lambda: fa.crop_contract(x, wy, wx)),
+            "ms": _device_ms(lambda: fa.two_view(img, crop, prm, **kw)),
+            "plain_ms": _device_ms(lambda: fa.two_view_reference(
+                img, crop, prm, **kw)),
+            "einsum_crop_ms": _device_ms(
+                lambda: fa.crop_contract(x, wy, wx)),
+            "eager_ms": _time_ms(lambda: fa.two_view(img, crop, prm, **kw)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "dense_bound_ms": max(dense_bytes / HBM_BYTES_PER_S,
+                                  dense_flops / PEAK_FLOPS["float32"]) * 1e3,
             "mbytes": n_bytes / 1e6, "gflop": flops / 1e9,
+            "dense_gflop": dense_flops / 1e9,
         }
         print(f"two_view {row} [{card}]", flush=True)
         if not (ok and bitwise):
@@ -224,6 +305,67 @@ def check_two_view(card):
                                  f"{K2_TOL}), bitwise repeatable {bitwise}")
         rows.append(row)
     return rows
+
+
+def _smi(query):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def k2_pass_sweeps(card, sweeps=3, calls=40):
+    """K2 at the training shape launch by launch, each pass's device time
+    from torch.profiler, in turns: straight after the previous call, after
+    256 MB were written (L2 flushed), and after a read of the image (the
+    image in L2); each sweep ends with the CUDA-graph time the kernel
+    line reports.  nvidia-smi reads the clocks while each arm runs."""
+    import threading
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from byol_tpu_torch.ops import fused_augment as fa
+    img, crop, prm = _k2_operands(64, 224, True, 1.0, None, seed=0)
+    scratch = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    before = {"after the previous call": lambda: None,
+              "L2 flushed": scratch.zero_,
+              "image read into L2": img.amax}
+
+    def k2():
+        fa.two_view(img, crop, prm, size=224, hue=True)
+    for sweep in range(sweeps):
+        for arm, prep in before.items():
+            clocks = []
+            smi = threading.Thread(target=lambda: clocks.append(_smi(
+                "clocks.sm,clocks.mem,power.draw,temperature.gpu")))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                smi.start()
+                n = 0
+                while n < calls or smi.is_alive():
+                    prep()
+                    k2()
+                    n += 1
+                    if n % 20 == 0:
+                        torch.cuda.synchronize()
+                torch.cuda.synchronize()
+            smi.join()
+            us = {"pass 1": [], "pass 2": []}
+            for evt in prof.events():
+                if (evt.device_type == DeviceType.CUDA
+                        and "two_view_kernel<" in evt.name):
+                    final = not evt.name.split(">")[0].endswith("false")
+                    us["pass 2" if final else "pass 1"].append(
+                        evt.time_range.elapsed_us())
+            stats = {k: {"n": len(v), "min": min(v), "median":
+                         sorted(v)[len(v) // 2], "max": max(v)}
+                     for k, v in us.items() if v}
+            print(f"two_view passes, sweep {sweep}, {arm}: us {stats}; "
+                  f"sm/mem clock, power, temperature during: {clocks} "
+                  f"[{card}]", flush=True)
+        print(f"two_view passes, sweep {sweep}: graph ms "
+              f"{_device_ms(k2):.4f} [{card}]", flush=True)
 
 
 def _kind(kernel_name):
@@ -381,14 +523,17 @@ def check_fused_update(card):
                "fused_apply": 7 * 4 * seg.total}
     rows = {
         "segment_norms": dict(
-            ms=_time_ms(lambda: fu.segment_norms(p, g, layout)),
-            plain_ms=_time_ms(
+            ms=_device_ms(lambda: fu.segment_norms(p, g, layout)),
+            plain_ms=_device_ms(
                 lambda: fu.segment_norms_reference(p, g, layout)),
+            eager_ms=_time_ms(lambda: fu.segment_norms(p, g, layout)),
             max_abs_err=err_a, ok=ok_a, bitwise_repeatable=bitwise),
         "fused_apply": dict(
-            ms=_time_ms(lambda: fu.fused_apply(
+            ms=_device_ms(lambda: fu.fused_apply(
                 bufs[0], g, bufs[1], bufs[2], scale, layout, **apply_kw)),
-            plain_ms=_time_ms(lambda: fu.fused_apply_reference(
+            plain_ms=_device_ms(lambda: fu.fused_apply_reference(
+                bufs[0], g, bufs[1], bufs[2], scale, layout, **apply_kw)),
+            eager_ms=_time_ms(lambda: fu.fused_apply(
                 bufs[0], g, bufs[1], bufs[2], scale, layout, **apply_kw)),
             max_abs_err=err_b, ok=ok_b),
     }
@@ -652,11 +797,7 @@ def main() -> int:
         return 1
     from byol_tpu_torch.ops import common
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    card = smi.strip()
+    card = _smi("name,power.limit").strip()
     print(card, flush=True)              # name, power limit (nvidia-smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -670,18 +811,21 @@ def main() -> int:
           f"(nvcc {common.build_seconds:.1f}s)", flush=True)
     if common.build_log is not None:
         for line in common.build_log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {line.strip()}", flush=True)
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
+                print(f"build: {line.strip()[:160]}", flush=True)
 
     flash_rows = check_flash(card)
     k1_rows = check_fused_update(card)
     k2_rows = check_two_view(card)
+    k2_pass_sweeps(card)
     launches = run_slice(card)
     torch.cuda.empty_cache()
     train_counts = run_training(card)
 
     main_row = next(r for r in flash_rows
-                    if r["shape"][0] == 64 and r["dtype"] == "bfloat16")
+                    if r["shape"] == [64, HEADS, SEQ, 64]
+                    and r["dtype"] == "bfloat16")
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",

@@ -19,6 +19,7 @@ from byol_tpu_torch.ops.attention import dense_attention, get_attention_fn
 
 SHAPES = [(1, 2, 197, 64), (2, 2, 37, 32)]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SMS = 132                    # an H100 SXM's SMs, for the launch plan
 
 
 def _qkv(shape, seed):
@@ -105,6 +106,31 @@ def test_refuses_gradients():
         fa.flash_attention(q, k, v)
 
 
+@pytest.mark.parametrize("s", [1, 197, 257])
+@pytest.mark.parametrize("bh", [1, 96, 768])
+def test_launch_plan_covers_every_query_row_once(bh, s):
+    """The bf16 kernel's cut of a head's query rows into work items: each
+    row of each head in exactly one item, items of whole 32-row groups
+    (a warp's two 16-row m-tiles), K/V resident up to 256 rows, and enough
+    items for every SM when the heads alone are fewer."""
+    plan = fa.launch_plan(bh, s, SMS)
+    covered = np.zeros(s, int)
+    for start, stop in fa.plan_rows(plan, s):
+        assert 0 <= start < stop <= s
+        covered[start:stop] += 1
+    assert covered.tolist() == [1] * s
+    assert plan.rows_per_block % (fa.GROUP_ROWS if plan.resident else 16) == 0
+    assert plan.rows_per_block <= max(fa.RESIDENT_MAX_SEQ, fa.RING_ROWS)
+    assert plan.resident == (s <= fa.RESIDENT_MAX_SEQ)
+    if not plan.resident:
+        assert plan.rows_per_block == fa.RING_ROWS
+    elif bh >= SMS:
+        assert plan.blocks_per_head == 1
+    else:
+        assert bh * plan.blocks_per_head >= min(
+            bh * -(-s // fa.GROUP_ROWS), bh * fa.MAX_SPLITS, SMS)
+
+
 def test_attention_registry():
     assert get_attention_fn("dense") is dense_attention
     assert get_attention_fn("flash") is fa.flash_attention
@@ -117,7 +143,10 @@ def test_attention_registry():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(8, 12, 197, 64), (2, 4, 100, 32),
-                                   (1, 2, 130, 128)],
+                                   (1, 2, 130, 128), (8, 12, 1, 64),
+                                   (8, 12, 65, 64), (8, 12, 208, 64),
+                                   (4, 12, 256, 128),
+                                   (8, 12, 257, 64), (8, 12, 577, 64)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain_on_the_card(shape, dtype):
     if not torch.cuda.is_available():

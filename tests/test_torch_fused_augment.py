@@ -6,18 +6,23 @@ to JAX's ``_weight_mat`` / ``crop_weight_mats`` at 1e-7 (another
 summation order in the column totals moves a weight by at most 2 ulps),
 on both arms: upsampling crops and the antialiased downsampling arm (raw
 40 -> 32 and 28 -> 24, with windows larger than the view forced in).  The
-plain version is held to JAX's ``_view_pipeline`` per op with forced gates
-at 1e-6, and the whole ``fused_two_view`` to JAX's (its Pallas kernel in
-interpret mode, as the JAX package's own tests run it) and to JAX's
-unfused ``two_view`` at 1e-5, on JAX's draws for ``augment_keys(seed,
-step, 1)[0]``.  The kernel itself runs only on a card: the ``cuda`` test
-holds it against the plain version there.
+bands K2 builds in the kernel (``crop_bands``), scattered back to dense,
+are held to the same matrices and to jax.image's ``compute_weight_mat``
+at 2.5e-7 (the column total summed over the band's taps in order, against
+a sum over every row: 2 ulps of a weight below 1).  The plain version is
+held to JAX's ``_view_pipeline`` per op with forced gates at 1e-6, and the
+whole ``fused_two_view`` to JAX's (its Pallas kernel in interpret mode, as
+the JAX package's own tests run it) and to JAX's unfused ``two_view`` at
+1e-5, on JAX's draws for ``augment_keys(seed, step, 1)[0]``.  The kernel
+itself runs only on a card: the ``cuda`` test holds it against the plain
+version there.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax._src.image import scale as jax_scale
 
 from byol_tpu.data import device_augment as jax_aug
 from byol_tpu.ops import fused_augment as jax_fused
@@ -28,6 +33,16 @@ from tests.test_torch_augment import jax_views, to_torch_params, uint8_images
 
 ARMS = [(40, 32), (28, 24)]          # (raw, view size)
 W_TOL = dict(rtol=1e-7, atol=1e-7)
+BAND_TOL = dict(rtol=0, atol=2.5e-7)
+
+
+def _crop(p) -> torch.Tensor:
+    """A port ``ViewParams``'s crop window as K2's (B, 5) operand."""
+    return fused_lib.view_kernel_inputs(p)[0]
+
+
+def _two_views(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack([a, b], dim=1)
 
 
 def _jax_params(raw, n=32, seed=0):
@@ -67,18 +82,78 @@ def test_weight_mats_match_jax_on_both_arms(raw, size):
     assert torch.equal(wx[1], plain[1])
 
 
+def _scatter(first: torch.Tensor, weights: torch.Tensor,
+             in_size: int) -> torch.Tensor:
+    """Bands (B, out), (B, out, T) -> the dense (B, in_size, out)."""
+    b, out, taps = weights.shape
+    rows = (first.unsqueeze(-1) + torch.arange(taps)).transpose(1, 2)
+    dense = torch.zeros(b, in_size, out)
+    return dense.scatter_add_(1, rows, weights.transpose(1, 2))
+
+
+def _band_case(case):
+    """(raw, size, JAX ViewParams) for one band case: draws at 224 -> 224
+    (every crop upsamples), 256 -> 224 with two windows wider than the
+    view (the antialiased arm), every flip on, and windows touching the
+    top/left and the bottom/right borders."""
+    raw = 256 if case == "down_256_224" else 224
+    p = jax.vmap(lambda k: jax_aug.view_params(k, raw, raw, 1.0))(
+        jax.random.split(jax.random.PRNGKey(7), 8))
+    if case == "down_256_224":
+        p = p._replace(ch=p.ch.at[0].set(250.0).at[1].set(256.0),
+                       cw=p.cw.at[0].set(240.5).at[1].set(256.0),
+                       y0=p.y0.at[0].set(3.0).at[1].set(0.0),
+                       x0=p.x0.at[0].set(15.5).at[1].set(0.0))
+    elif case == "flip":
+        p = p._replace(flip=jnp.ones(8, bool))
+    elif case == "top_left":
+        p = p._replace(y0=jnp.zeros(8), x0=jnp.zeros(8))
+    elif case == "bottom_right":
+        p = p._replace(y0=raw - p.ch, x0=raw - p.cw)
+    return raw, 224, p
+
+
+@pytest.mark.parametrize("case", ["up_224", "down_256_224", "flip",
+                                  "top_left", "bottom_right"])
+def test_crop_bands_match_dense_weights(case):
+    raw, size, p = _band_case(case)
+    tp = to_torch_params(p)
+    ry, rw, cf, cw = fused_lib.crop_window_bands(tp, raw, raw, size)
+    taps = fused_lib.band_taps(raw, size)
+    assert rw.shape == (8, size, taps) and taps == 5
+    assert int(ry.min()) >= 0 and int(ry.max()) + taps <= raw
+    # no tap beyond the window: every column's weights sum to 1 or 0
+    sums = rw.sum(-1)
+    assert bool(((sums - 1).abs() < 1e-6).logical_or(sums == 0).all())
+    wy, wx = _scatter(ry, rw, raw), _scatter(cf, cw, raw)
+    dy, dx = fused_lib.crop_weight_mats(tp, raw, raw, size)
+    torch.testing.assert_close(wy, dy, **BAND_TOL)
+    torch.testing.assert_close(wx, dx, **BAND_TOL)
+    # jax.image's own weight matrices (scale_and_translate's path)
+    sy, sx = size / p.ch, size / p.cw
+    mat = jax.vmap(lambda s, t: jax_scale.compute_weight_mat(
+        raw, size, s, t, jax_scale._fill_triangle_kernel, True))
+    jwy, jwx = mat(sy, -p.y0 * sy), mat(sx, -p.x0 * sx)
+    jwx = jnp.where(p.flip[:, None, None], jwx[:, :, ::-1], jwx)
+    np.testing.assert_allclose(wy.numpy(), np.asarray(jwy), **BAND_TOL)
+    np.testing.assert_allclose(wx.numpy(), np.asarray(jwx), **BAND_TOL)
+
+
 def test_kernel_inputs_pack_prm_as_jax():
     keys = jax.random.split(jax.random.PRNGKey(3), 8)
     jwy, jwx, jprm, jblur, jsigma = jax_fused.view_kernel_inputs(
         keys, 28, 28, 24, 1.0)
     p = to_torch_params(jax.vmap(lambda k: jax_aug.view_params(
         k, 28, 28, 1.0))(keys))
-    wy, wx, prm, blur, sigma = fused_lib.view_kernel_inputs(p, 28, 28, 24)
+    crop, prm, blur, sigma = fused_lib.view_kernel_inputs(p)
     np.testing.assert_allclose(prm.numpy(), np.asarray(jprm), rtol=0,
                                atol=0)
+    wy, wx = fused_lib.crop_weight_mats(
+        fused_lib.CropWindow(*crop.unbind(1)), 28, 28, 24)
     np.testing.assert_allclose(wx.numpy(), np.asarray(jwx), **W_TOL)
+    np.testing.assert_allclose(wy.numpy(), np.asarray(jwy), **W_TOL)
     assert torch.equal(blur, torch.from_numpy(np.array(jblur, np.float32)))
-    assert prm.shape == (8, 6)
+    assert prm.shape == (8, 6) and crop.shape == (8, 5)
 
 
 @pytest.mark.parametrize("jitter,gray,hue", [
@@ -95,10 +170,11 @@ def test_plain_version_matches_jax_view_pipeline(jitter, gray, hue):
     x = jnp.asarray(imgs).astype(jnp.float32) / 255.0
     want = jax.vmap(lambda im, a, b, c: jax_fused._view_pipeline(
         im, a, b, c, hue=hue))(x, jwy, jwx, prm)
-    t = lambda a: torch.from_numpy(np.array(a, np.float32))
-    wy2, wx2, prm2 = (torch.stack([t(a), t(a)], 1) for a in (jwy, jwx, prm))
-    v1, v2 = fused_lib.two_view_reference(torch.from_numpy(imgs), wy2, wx2,
-                                          prm2, hue=hue)
+    crop = _crop(to_torch_params(p))
+    prm2 = torch.from_numpy(np.array(prm, np.float32))
+    v1, v2 = fused_lib.two_view_reference(
+        torch.from_numpy(imgs), _two_views(crop, crop),
+        _two_views(prm2, prm2), size=size, hue=hue)
     np.testing.assert_allclose(v1.numpy(), np.asarray(want), rtol=0,
                                atol=1e-6)
     assert torch.equal(v1, v2)
@@ -130,19 +206,22 @@ def test_fused_two_view_matches_jax(raw, size, dtype, strength):
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     imgs = torch.from_numpy(uint8_images(2, raw=28))
-    wy, wx = torch.zeros(2, 2, 28, 24), torch.zeros(2, 2, 28, 24)
-    prm = torch.zeros(2, 2, 6)
+    crop, prm = torch.zeros(2, 2, 5), torch.zeros(2, 2, 6)
     with pytest.raises(ValueError, match="uint8 or float32"):
-        fused_lib.two_view(imgs.double(), wy, wx, prm, hue=True)
-    with pytest.raises(ValueError, match="wx"):
-        fused_lib.two_view(imgs, wy, wx[:, :, :20], prm, hue=True)
+        fused_lib.two_view(imgs.double(), crop, prm, size=24, hue=True)
+    with pytest.raises(ValueError, match="crop"):
+        fused_lib.two_view(imgs, crop[..., :4], prm, size=24, hue=True)
     with pytest.raises(ValueError, match="prm"):
-        fused_lib.two_view(imgs, wy, wx, prm[..., :5], hue=True)
+        fused_lib.two_view(imgs, crop, prm[..., :5], size=24, hue=True)
     with pytest.raises(ValueError, match=r"\(B, H, W, 3\)"):
-        fused_lib.two_view(imgs[..., :2], wy, wx, prm, hue=True)
-    meta = [t.to("meta") for t in (imgs, wy, wx, prm)]
+        fused_lib.two_view(imgs[..., :2], crop, prm, size=24, hue=True)
+    with pytest.raises(ValueError, match="view size"):
+        fused_lib.two_view(imgs, crop, prm, size=0, hue=True)
+    with pytest.raises(ValueError, match="taps"):
+        fused_lib.two_view(imgs, crop, prm, size=3, hue=True)
+    meta = [t.to("meta") for t in (imgs, crop, prm)]
     with pytest.raises(ValueError, match="no kernel for device"):
-        fused_lib.two_view(*meta, hue=True)
+        fused_lib.two_view(*meta, size=24, hue=True)
 
 
 @pytest.mark.cuda
@@ -159,13 +238,11 @@ def test_kernel_matches_plain_version_on_the_card(raw, u8):
                          device="cuda", dtype=torch.uint8)
     if not u8:
         imgs = imgs.float() / 255.0
-    per_view = [fused_lib.view_kernel_inputs(p, raw, raw, 224)
-                for p in views]
-    wy, wx, prm = (torch.stack([per_view[0][i], per_view[1][i]], dim=1)
-                   for i in range(3))
-    got = fused_lib.two_view(imgs, wy, wx, prm, hue=True)
-    again = fused_lib.two_view(imgs, wy, wx, prm, hue=True)
-    want = fused_lib.two_view_reference(imgs, wy, wx, prm, hue=True)
+    per_view = [fused_lib.view_kernel_inputs(p) for p in views]
+    crop, prm = (_two_views(per_view[0][i], per_view[1][i]) for i in range(2))
+    got = fused_lib.two_view(imgs, crop, prm, size=224, hue=True)
+    again = fused_lib.two_view(imgs, crop, prm, size=224, hue=True)
+    want = fused_lib.two_view_reference(imgs, crop, prm, size=224, hue=True)
     torch.cuda.synchronize()
     for g, a, w in zip(got, again, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
