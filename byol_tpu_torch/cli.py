@@ -4,7 +4,13 @@ this slice reads the ones below, the rest of the JAX surface comes later
 (ROADMAP.md, section 1 item 15).
 
 It runs on the card unless ``--no-cuda`` asks for the CPU; with no card and
-no ``--no-cuda`` it exits 2 before building anything.
+no ``--no-cuda`` it exits 2 before building anything.  Checkpoints go to
+``--model-dir/<run name>``, and a relaunch with the same flags resumes
+there; on SIGTERM the run checkpoints and exits 143 (``--no-save-on-signal``
+turns that off), and ``--fault-at-step N`` exits at step N without saving.
+The data axis is 1 (one card), as the JAX CLI's ``--num-replicas 0``
+resolves it on a one-device host, so both name a run of the same flags
+alike.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="BYOL pretraining on one CUDA card (PyTorch port)")
     p.add_argument("--task", type=str, default="image_folder",
                    help="dataset; this slice ports 'fake' and 'synth'")
+    p.add_argument("--uid", type=str, default="",
+                   help="prefix of the run name (the checkpoint directory)")
     p.add_argument("--batch-size", type=int, default=4096)
     p.add_argument("--epochs", type=int, default=3000)
     p.add_argument("--image-size-override", type=int, default=224)
@@ -30,9 +38,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--projection-size", type=int, default=256)
     p.add_argument("--head-latent-size", type=int, default=4096)
     p.add_argument("--base-decay", type=float, default=0.996)
+    p.add_argument("--model-dir", type=str, default=".models",
+                   help="checkpoints go to <model-dir>/<run name>")
     p.add_argument("--weight-decay", type=float, default=1e-6)
     p.add_argument("--lr", type=float, default=0.2)
     p.add_argument("--warmup", type=int, default=10, help="warmup epochs")
+    p.add_argument("--early-stop", action="store_true",
+                   help="stop after 10 epochs without a better test loss "
+                        "and restore the best checkpoint")
     p.add_argument("--fused-update", type=str, default="off",
                    choices=("off", "on"),
                    help="'on': the LARS+EMA update runs as the fused "
@@ -52,6 +65,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug-step", action="store_true",
                    help="one minibatch per epoch")
     p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--fault-at-step", type=int, default=0,
+                   help="fault injection: exit at step N without saving "
+                        "(tests checkpoint/resume)")
+    p.add_argument("--save-on-signal",
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help="on SIGTERM (a preemption notice) checkpoint at "
+                        "the next step and exit 143")
     p.add_argument("--half", action="store_true", default=True,
                    help="bf16 compute (the default)")
     p.add_argument("--no-half", dest="half", action="store_false")
@@ -63,21 +83,25 @@ def build_parser() -> argparse.ArgumentParser:
 def config_from_args(args: argparse.Namespace) -> Config:
     return Config(
         task=TaskConfig(task=args.task, batch_size=args.batch_size,
-                        epochs=args.epochs,
+                        epochs=args.epochs, uid=args.uid,
                         image_size_override=args.image_size_override,
                         augment_placement=args.augment_placement,
                         fused_augment=args.fused_augment),
         model=ModelConfig(arch=args.arch,
                           projection_size=args.projection_size,
                           head_latent_size=args.head_latent_size,
-                          base_decay=args.base_decay),
+                          base_decay=args.base_decay,
+                          model_dir=args.model_dir),
         regularizer=RegularizerConfig(
             weight_decay=args.weight_decay,
             color_jitter_strength=args.color_jitter_strength),
         optim=OptimConfig(lr=args.lr, warmup=args.warmup,
+                          early_stop=args.early_stop,
                           fused_update=args.fused_update),
-        device=DeviceConfig(debug_step=args.debug_step, seed=args.seed,
-                            half=args.half))
+        device=DeviceConfig(num_replicas=1, debug_step=args.debug_step,
+                            seed=args.seed, half=args.half,
+                            fault_at_step=args.fault_at_step,
+                            save_on_signal=args.save_on_signal))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -90,6 +114,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     cfg = config_from_args(args)
     from byol_tpu_torch.training.trainer import fit
+    # SystemExit (143 after a SIGTERM checkpoint, or --fault-at-step) is
+    # not caught here: it is the process's exit
     try:
         result = fit(cfg, device=device)
     except (ValueError, NotImplementedError) as e:

@@ -10,6 +10,8 @@ not have yet: a refused flag never trains with silently different math.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from typing import Optional, Tuple
 
 
@@ -123,6 +125,15 @@ class Config:
 
     def replace(self, **sections) -> "Config":
         return dataclasses.replace(self, **sections)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        # strict JSON: a NaN in a config field is a bug worth a ValueError,
+        # not a bare NaN token in the serialized config
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True,
+                          allow_nan=False)
 
 
 @_frozen
@@ -273,3 +284,14 @@ def resolve(cfg: Config, *, num_train_samples: int, num_test_samples: int,
         representation_size=rep_size,
         num_valid_samples=num_valid_samples // n_rep,
     )
+
+
+def run_name(cfg: Config) -> str:
+    """Deterministic run name from the config and its uid: the directory
+    under ``model_dir`` that holds the run's checkpoints.  The JAX package
+    names the same flags the same way, so both packages' runs of one
+    config share a directory (the checkpoint store refuses the other
+    package's checkpoints)."""
+    digest = hashlib.sha1(cfg.to_json().encode()).hexdigest()[:8]
+    uid = cfg.task.uid or "byol"
+    return f"{uid}_{cfg.model.arch}_b{cfg.task.batch_size}_{digest}"

@@ -16,10 +16,18 @@ flags it keeps.  Net-defining flags: --arch, --attn-impl, --pooling,
     --no-cuda             run on the CPU; without it a machine with no card
                           exits nonzero (there is no silent CPU fallback)
 
-The encoder is random-init from --seed (embeddings are meaningless;
-compute is identical): ``--checkpoint`` needs an orbax reader free of JAX,
-and ``--http`` the wire front end, both later slices (ROADMAP.md).
-Without --smoke the process serves in-process until SIGTERM/SIGINT.
+    --checkpoint DIR      restore the encoder from a training run of the
+                          port: DIR is ``<model-dir>/<run name>``, the
+                          directory holding ``ckpt-N/`` and ``meta.json``;
+                          the net-defining flags must match the training
+                          run's.  Without it the encoder is random-init
+                          from --seed (embeddings are meaningless; compute
+                          is identical), and a line says so
+    --restore-best        the best-metric checkpoint, not the last
+
+``--http`` (the wire front end) and reading the JAX package's orbax
+checkpoints are later slices (ROADMAP.md).  Without --smoke the process
+serves in-process until SIGTERM/SIGINT.
 """
 from __future__ import annotations
 
@@ -54,6 +62,13 @@ def build_serve_parser() -> argparse.ArgumentParser:
     d.add_argument("--no-cuda", action="store_true",
                    help="run on the CPU")
     s = p.add_argument_group("serving")
+    s.add_argument("--checkpoint", type=str, default="",
+                   help="checkpoint directory of a training run of the "
+                        "port (<model-dir>/<run name>, holding ckpt-N/ and "
+                        "meta.json); empty = random-init encoder "
+                        "(smoke/bench only)")
+    s.add_argument("--restore-best", action="store_true",
+                   help="restore the best-metric checkpoint, not the last")
     s.add_argument("--min-bucket", type=int, default=8,
                    help="smallest pad-to bucket (power of two)")
     s.add_argument("--max-batch", type=int, default=64,
@@ -129,12 +144,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         stats_interval_s=args.stats_interval,
         pipeline=args.pipeline)
     try:
-        service = build_service(cfg, serve_cfg, device=device)
-    except (ValueError, NotImplementedError) as e:
+        service = build_service(cfg, serve_cfg, device=device,
+                                checkpoint_dir=args.checkpoint,
+                                best=args.restore_best)
+    except (ValueError, NotImplementedError, FileNotFoundError) as e:
         print(f"byol_tpu_torch serve: {e}", file=sys.stderr)
         return 2
-    print("serve: serving a RANDOM-init encoder from --seed (embeddings are "
-          "meaningless; smoke/bench only)", file=sys.stderr)
+    if not args.checkpoint:
+        print("serve: no --checkpoint given — serving a RANDOM-init encoder "
+              "from --seed (embeddings are meaningless; smoke/bench only)",
+              file=sys.stderr)
     t0 = time.perf_counter()
     service.start()              # warmup: every bucket runs once
     print(f"serve: warm — {service.engine.compile_count} bucket shape(s) "

@@ -12,10 +12,11 @@ plus a :class:`~byol_tpu_torch.serving.meter.ServingMeter` for queue depth,
 fill ratio and the latency tail.
 
 :func:`build_service` is the startup path: rebuild the encoder from a
-Config, load a flax parameter tree through ``convert.from_flax`` (or draw
-random weights from the seed), and hand it to the engine.  Restoring an
-orbax checkpoint needs a JAX-free reader and is not ported yet
-(ROADMAP.md).
+Config, load its weights from one of the port's training checkpoints
+(:func:`restore_params_for_serving`), from a flax parameter tree through
+``convert.from_flax``, or draw random weights from the seed, and hand it
+to the engine.  Reading the JAX package's orbax checkpoints is not ported
+(ROADMAP.md, section 1 item 1).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import collections
 import dataclasses
 import threading
 import time
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -235,21 +236,52 @@ def _serving_rcfg(cfg, num_classes: int):
                    output_size=num_classes, input_shape=(size, size, 3))
 
 
+def restore_params_for_serving(cfg, checkpoint_dir: str, *,
+                               num_classes: int = 10, best: bool = False,
+                               epoch: Optional[int] = None
+                               ) -> Tuple[torch.nn.Module, int]:
+    """``(net, epoch)``: the encoder of ``cfg`` on the CPU, with the
+    parameters and BatchNorm statistics of a training checkpoint (the
+    directory the trainer writes, ``model_dir/<run name>``): the last one,
+    the best with ``best``, or ``epoch``.
+
+    The checkpoint is read on the host and everything but the forward
+    pass's weights is dropped there: the LARS momentum and the EMA target
+    never reach the card."""
+    from byol_tpu_torch.checkpoint import CheckpointStore
+    from byol_tpu_torch.training.build import build_net
+
+    store = CheckpointStore(checkpoint_dir)
+    try:
+        tree, at_epoch = store.restore(epoch=epoch, best=best)
+    finally:
+        store.close()
+    weights = {**tree["params"], **tree["batch_stats"]}
+    del tree
+    net = build_net(_serving_rcfg(cfg, num_classes))
+    # strict: every parameter and statistic of the net, shapes checked
+    net.load_state_dict(weights, strict=True)
+    return net, at_epoch
+
+
 def build_service(cfg, serve_cfg: ServeConfig, *,
+                  checkpoint_dir: str = "", best: bool = False,
                   params: Optional[Mapping[str, Any]] = None,
                   batch_stats: Optional[Mapping[str, Any]] = None,
                   device="cuda",
                   events: Optional[Any] = None,
                   recorder: Optional[Any] = None) -> EmbeddingService:
-    """Config (+ optional flax weights) -> a constructed (NOT started)
-    EmbeddingService on ``device`` (the card unless the caller asks for
-    the CPU).
+    """Config (+ weights) -> a constructed (NOT started) EmbeddingService
+    on ``device`` (the card unless the caller asks for the CPU).
 
+    ``checkpoint_dir`` names a training run's checkpoint directory
+    (:func:`restore_params_for_serving`: the last checkpoint, or the best
+    with ``best``).
     ``params``/``batch_stats`` are the numpy trees of
     ``jax.device_get(init_variables(...))`` (``convert.from_flax`` reads
-    them).  ``params=None`` serves a RANDOM-init encoder drawn from
-    ``cfg.device.seed``: meaningless embeddings, identical compute — the
-    smoke/bench path.
+    them).  With neither, the service serves a RANDOM-init encoder drawn
+    from ``cfg.device.seed``: meaningless embeddings, identical compute —
+    the smoke/bench path.
     """
     from byol_tpu_torch.convert import from_flax
     from byol_tpu_torch.core.preflight import resolve_device
@@ -265,10 +297,19 @@ def build_service(cfg, serve_cfg: ServeConfig, *,
     buckets = BucketSpec(min_bucket=serve_cfg.min_bucket,
                          max_bucket=serve_cfg.max_bucket)
     rcfg = _serving_rcfg(cfg, serve_cfg.num_classes)
-    net = build_net(rcfg)
-    if params is not None:
-        net.load_state_dict(from_flax(params, batch_stats,
-                                      like=net.state_dict()), strict=True)
+    if checkpoint_dir:
+        if params is not None:
+            raise ValueError("build_service: give checkpoint_dir or params, "
+                             "not both")
+        net, _ = restore_params_for_serving(
+            cfg, checkpoint_dir, num_classes=serve_cfg.num_classes,
+            best=best)
+    else:
+        net = build_net(rcfg)
+        if params is not None:
+            net.load_state_dict(from_flax(params, batch_stats,
+                                          like=net.state_dict()),
+                                strict=True)
     net = store_in_compute_dtype(net.to(device))
     represent = frozen_representation_fn(
         net, half=cfg.device.half, normalize=cfg.parity.normalize_inputs)

@@ -28,7 +28,11 @@ As in the JAX state:
 counters are host ints, so the step reads no device scalar back.
 
 The net must be on its device before :func:`create_train_state`: moving it
-afterwards (``.to``) would replace the views with copies.
+afterwards (``.to``) would replace the views with copies.  For the same
+reason :func:`load_converted` and :func:`load_canonical` copy into the
+existing views, in place.  :func:`canonical_state` is the checkpoint's
+tree: each parameter in its own shape, so a checkpoint does not depend on
+the padded layout.
 """
 from __future__ import annotations
 
@@ -126,23 +130,73 @@ def create_train_state(net: nn.Module, *, ema_init_mode: str = "copy",
 
 
 @torch.no_grad()
-def load_converted(state: TrainState, converted: Mapping[str, Any]) -> None:
-    """Copy a train state carried across by
-    ``convert.train_state_from_flax`` into ``state``, in place."""
+def _load(state: TrainState, trees: Mapping[str, Mapping[str, Any]],
+          stats: Mapping[str, Any], counters: Mapping[str, Any],
+          what: str) -> None:
+    """Copy named trees into the state's views and buffers, in place: the
+    parameters stay views of the flat buffers the update kernels write."""
     for key, buf in (("params", state.params), ("target", state.target),
                      ("momentum", state.momentum)):
         tree = state.tree(buf)
-        if set(converted[key]) != set(tree):
-            raise ValueError(f"load_converted: {key} names differ at "
-                             f"{sorted(set(converted[key]) ^ set(tree))[:4]}")
+        if set(trees[key]) != set(tree):
+            raise ValueError(f"{what}: {key} names differ at "
+                             f"{sorted(set(trees[key]) ^ set(tree))[:4]}")
         for name, view in tree.items():
-            view.copy_(converted[key][name])
-    stats = state.batch_stats()
-    if set(converted["buffers"]) != set(stats):
-        raise ValueError("load_converted: BatchNorm statistics differ at "
-                         f"{sorted(set(converted['buffers']) ^ set(stats))}")
-    for name, buf in stats.items():
-        buf.copy_(converted["buffers"][name])
-    state.count = converted["count"]
-    state.step = converted["step"]
-    state.ema_step = converted["ema_step"]
+            src = trees[key][name]
+            if tuple(src.shape) != tuple(view.shape):
+                raise ValueError(f"{what}: {key} {name} has shape "
+                                 f"{tuple(src.shape)}, the state "
+                                 f"{tuple(view.shape)}")
+            view.copy_(src)
+    own = state.batch_stats()
+    if set(stats) != set(own):
+        raise ValueError(f"{what}: BatchNorm statistics differ at "
+                         f"{sorted(set(stats) ^ set(own))}")
+    for name, buf in own.items():
+        buf.copy_(stats[name])
+    state.count = int(counters["count"])
+    state.step = int(counters["step"])
+    state.ema_step = int(counters["ema_step"])
+
+
+def load_converted(state: TrainState, converted: Mapping[str, Any]) -> None:
+    """Copy a train state carried across by
+    ``convert.train_state_from_flax`` into ``state``, in place."""
+    _load(state, converted, converted["buffers"], converted,
+          "load_converted")
+
+
+# the version of canonical_state's tree; load_canonical refuses any other
+CANONICAL_FORMAT = 1
+
+
+@torch.no_grad()
+def canonical_state(state: TrainState) -> Dict[str, Any]:
+    """The train state as a host tree that does not depend on the flat
+    layout (as the JAX checkpoint does not depend on the mesh): ``params``,
+    ``target`` and ``momentum`` keyed by parameter name, each in its own
+    shape; ``batch_stats``; the counters ``step``, ``count`` and
+    ``ema_step``; and ``format``.  Gradients are not state: the step
+    zeroes them.
+
+    Every tensor is a CPU copy, complete when this returns: the update
+    kernels write the flat buffers in place, so a later step cannot tear
+    the tree while it is written."""
+    out: Dict[str, Any] = {"format": CANONICAL_FORMAT, "step": state.step,
+                           "count": state.count, "ema_step": state.ema_step}
+    for key, buf in (("params", state.params), ("target", state.target),
+                     ("momentum", state.momentum)):
+        # one copy of the whole buffer, then views in the leaves' shapes
+        out[key] = state.tree(buf.to("cpu", copy=True))
+    out["batch_stats"] = {name: buf.to("cpu", copy=True)
+                          for name, buf in state.batch_stats().items()}
+    return out
+
+
+def load_canonical(state: TrainState, tree: Mapping[str, Any]) -> None:
+    """Copy a :func:`canonical_state` tree into ``state``, in place."""
+    if tree.get("format") != CANONICAL_FORMAT:
+        raise ValueError(f"load_canonical: tree format "
+                         f"{tree.get('format')!r}, this code reads "
+                         f"{CANONICAL_FORMAT}")
+    _load(state, tree, tree["batch_stats"], tree, "load_canonical")

@@ -1,31 +1,48 @@
 """The training loop (counterpart of byol_tpu/training/trainer.py), cut
-to what one device and this slice need:
+to what one device needs:
 
 - the epoch loop runs exactly ``steps_per_train_epoch`` optimizer steps
   (wrapping the loader if it runs short), or one under ``debug_step``;
 - one eval pass per epoch, every batch padded to the train batch with a
   validity mask (one shape, pad rows out of every metric);
 - one line per epoch: loss, BYOL and linear-probe losses, top-1/5, wall
-  ms per step and images per second, then the same metrics on the test set.
+  ms per step and images per second, then the same metrics on the test set;
+- a checkpoint per epoch through :class:`ModelSaver` under
+  ``model_dir/run_name(cfg)``, on the test loss, with burn-in
+  ``0.1 * epochs`` and patience 10; early stop (``early_stop``) restores
+  the best state and evaluates it again; a relaunch of a stopped run
+  restores the best state, evaluates it and trains nothing;
+- a relaunch resumes from the last checkpoint.  Data order is a function
+  of (seed, epoch) and the in-step augmentation draws of (seed, step), so a
+  checkpoint taken mid-epoch resumes exactly: the relaunch re-enters that
+  epoch and skips the batches its steps already took;
+- SIGTERM (a preemption notice) checkpoints the state at the next step
+  boundary as last, never best, and exits 143; ``fault_at_step`` exits
+  without saving.
 
 The metrics stay on the device during an epoch and are read back once at
 its end, after a synchronise, so the step time is the device's as well as
-the host's.  Checkpointing, telemetry, spans and preemption handling are
-not ported yet (ROADMAP.md, section 1 items 8 and 13).
+the host's.  Telemetry and spans are not ported yet (ROADMAP.md, section 1
+item 13).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import signal
+import threading
 import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
-from byol_tpu_torch.core.config import Config, resolve
+from byol_tpu_torch.checkpoint import ModelSaver
+from byol_tpu_torch.core.config import Config, resolve, run_name
 from byol_tpu_torch.data.loader import LoaderBundle, get_loader, pad_batch
 from byol_tpu_torch.training.build import setup_training
-from byol_tpu_torch.training.state import TrainState
+from byol_tpu_torch.training.state import (TrainState, canonical_state,
+                                           load_canonical)
 
 
 @dataclasses.dataclass
@@ -37,6 +54,8 @@ class FitResult:
     step_losses: List[float]        # every optimizer step's loss, in order
     step_ms: float                  # wall ms per step, last epoch
     images_per_sec: float           # last epoch
+    stopped_early: bool = False
+    test_losses: List[float] = dataclasses.field(default_factory=list)
 
 
 def _range_check(batch, input_shape) -> None:
@@ -115,8 +134,10 @@ def _fmt(m: Dict[str, float]) -> str:
 
 def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
         verbose: bool = True) -> FitResult:
-    """Train per the config on ``device``; returns the final state and the
-    last epoch's metrics."""
+    """Train per the config on ``device``, resuming from the run's last
+    checkpoint if it has one; returns the final state and the last epoch's
+    metrics.  ``step_losses`` and ``test_losses`` hold what this call
+    ran."""
     # one device: the data axis is 1 (the JAX trainer sizes it to the
     # devices it finds)
     cfg = cfg.replace(device=dataclasses.replace(cfg.device, num_replicas=1))
@@ -126,6 +147,20 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
                    num_test_samples=loader.num_test_samples,
                    output_size=loader.output_size,
                    input_shape=loader.input_shape)
+    saver = ModelSaver(
+        os.path.join(cfg.model.model_dir, run_name(cfg)),
+        early_stop=cfg.optim.early_stop,
+        burn_in_interval=int(0.1 * cfg.task.epochs),
+        larger_is_better=False,
+        max_early_stop_steps=10)
+    try:
+        return _fit(cfg, rcfg, saver, device, loader, verbose)
+    finally:
+        saver.close()             # raises if the last write failed
+
+
+def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
+         loader: LoaderBundle, verbose: bool) -> FitResult:
     _, state, train_step, eval_step, _ = setup_training(rcfg, device)
     if verbose:
         print(f"model: {cfg.model.arch}, {state.seg.num_segments} parameter "
@@ -133,43 +168,138 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
               f"fused_update={cfg.optim.fused_update}, "
               f"half={cfg.device.half}, on {device}", flush=True)
     batch_size = rcfg.global_batch_size
-    step_losses: List[float] = []
-    train_metrics: Dict[str, float] = {}
-    test_metrics: Dict[str, float] = {}
-    step_ms = images_per_sec = 0.0
-    epoch = 0
-    for epoch in range(cfg.task.epochs):
-        loader.set_all_epochs(epoch)
-        acc, losses = _Sums(), []
-        _sync(device)
-        t0 = time.perf_counter()
-        for batch in _epoch_batches(loader, rcfg.steps_per_train_epoch):
-            if epoch == 0 and not losses:
-                _range_check(batch, rcfg.input_shape)
-            metrics = train_step(state, _to_device(batch, device))
-            acc.update(metrics)
-            losses.append(metrics["loss_mean"])
-            if cfg.device.debug_step:
-                break
-        _sync(device)
-        elapsed = time.perf_counter() - t0
-        train_metrics = acc.result()
-        step_losses.extend(float(x) for x in losses)
-        step_ms = elapsed * 1e3 / len(losses)
-        images_per_sec = batch_size * len(losses) / elapsed
 
+    def run_eval() -> Dict[str, float]:
         test = _Sums()
         for batch in loader.test_loader:
             test.update(eval_step(state, _to_device(
                 pad_batch(batch, batch_size), device)))
             if cfg.device.debug_step:
                 break
-        test_metrics = test.result()
+        return test.result()
+
+    if saver.stopped_early:
+        # the run already stopped early (the durable marker): evaluate the
+        # best state and train nothing
+        tree, init_epoch = saver.restore(best=True)
+        load_canonical(state, tree)
+        test_metrics = run_eval()
         if verbose:
-            print(f"epoch {epoch}: train {_fmt(train_metrics)}, "
-                  f"{len(losses)} steps, {step_ms:.1f} ms/step, "
-                  f"{images_per_sec:.1f} img/s | test {_fmt(test_metrics)}",
+            print(f"run already early-stopped at best epoch "
+                  f"{init_epoch - 1}; nothing to train", flush=True)
+        return FitResult(state=state, epoch=init_epoch - 1, train_metrics={},
+                         test_metrics=test_metrics, step_losses=[],
+                         step_ms=0.0, images_per_sec=0.0, stopped_early=True)
+    init_epoch = resume_skip = 0
+    if saver.has_checkpoint():
+        # plain resume continues from LAST: best would discard the training
+        # after it and reset the persisted patience on every relaunch
+        tree, init_epoch = saver.restore(best=False)
+        load_canonical(state, tree)
+        saved_epoch = init_epoch - 1
+        if not cfg.device.debug_step:
+            # a preemption checkpoint lands mid-epoch: re-enter that epoch
+            # and skip the batches its steps already took
+            done_in_epoch = state.step % rcfg.steps_per_train_epoch
+            if done_in_epoch:
+                init_epoch -= 1
+                resume_skip = done_in_epoch
+        if verbose:
+            print(f"resumed from the checkpoint of epoch {saved_epoch} at "
+                  f"step {state.step} "
+                  f"(best loss {saver.best_metric}"
+                  + (f", re-entering epoch {init_epoch} at batch "
+                     f"{resume_skip}" if resume_skip else "") + ")",
                   flush=True)
+    resume_epoch = init_epoch
+
+    preempted = threading.Event()
+    # a handler can be installed from the main thread only; elsewhere
+    # SIGTERM keeps whatever the process has
+    installed = (cfg.device.save_on_signal and threading.current_thread()
+                 is threading.main_thread())
+    if installed:
+        old_sigterm = signal.signal(signal.SIGTERM,
+                                    lambda signum, frame: preempted.set())
+    epoch = init_epoch
+
+    def maybe_preempt_save() -> None:
+        if not preempted.is_set():
+            return
+        # the epoch is partly trained: saved as last, never best; the
+        # relaunch finds step % steps_per_epoch != 0 and resumes exactly
+        saver.store.save(epoch, canonical_state(state), is_best=False)
+        saver.store.wait()
+        print(f"SIGTERM: checkpointed epoch {epoch} at step {state.step}; "
+              "exiting 143 for requeue", flush=True)
+        raise SystemExit(143)
+
+    step_losses: List[float] = []
+    test_losses: List[float] = []
+    train_metrics: Dict[str, float] = {}
+    test_metrics: Dict[str, float] = {}
+    step_ms = images_per_sec = 0.0
+    stopped = checked = False
+    try:
+        for epoch in range(init_epoch, cfg.task.epochs):
+            loader.set_all_epochs(epoch)
+            skip = resume_skip if epoch == resume_epoch else 0
+            acc, losses = _Sums(), []
+            _sync(device)
+            t0 = time.perf_counter()
+            for i, batch in enumerate(
+                    _epoch_batches(loader, rcfg.steps_per_train_epoch)):
+                if i < skip:
+                    continue
+                if not checked:
+                    _range_check(batch, rcfg.input_shape)
+                    checked = True
+                metrics = train_step(state, _to_device(batch, device))
+                acc.update(metrics)
+                losses.append(metrics["loss_mean"])
+                maybe_preempt_save()
+                if (cfg.device.fault_at_step
+                        and state.step == cfg.device.fault_at_step):
+                    # fault injection: die mid-epoch without saving, as a
+                    # lost worker does; a relaunch resumes from the last
+                    # checkpoint
+                    raise SystemExit(f"fault injected at step {state.step} "
+                                     "(--fault-at-step)")
+                if cfg.device.debug_step:
+                    break
+            _sync(device)
+            elapsed = time.perf_counter() - t0
+            train_metrics = acc.result()
+            step_losses.extend(float(x) for x in losses)
+            step_ms = elapsed * 1e3 / len(losses)
+            images_per_sec = batch_size * len(losses) / elapsed
+            # the readback and eval windows are long: a notice landing in
+            # them must not wait for the next epoch's first step
+            maybe_preempt_save()
+
+            test_metrics = run_eval()
+            test_losses.append(test_metrics["loss_mean"])
+            maybe_preempt_save()
+            if verbose:
+                print(f"epoch {epoch}: train {_fmt(train_metrics)}, "
+                      f"{len(losses)} steps, {step_ms:.1f} ms/step, "
+                      f"{images_per_sec:.1f} img/s | test "
+                      f"{_fmt(test_metrics)}", flush=True)
+            if saver(test_metrics["loss_mean"], epoch, canonical_state(state)):
+                tree, _ = saver.restore(best=True)
+                load_canonical(state, tree)
+                test_metrics = run_eval()
+                stopped = True
+                if verbose:
+                    print(f"early stop at epoch {epoch}; restored best "
+                          f"(loss {saver.best_metric:.4f})", flush=True)
+                break
+    finally:
+        if installed:
+            # None: the old handler was not installed from Python
+            signal.signal(signal.SIGTERM, old_sigterm if old_sigterm
+                          is not None else signal.SIG_DFL)
     return FitResult(state=state, epoch=epoch, train_metrics=train_metrics,
                      test_metrics=test_metrics, step_losses=step_losses,
-                     step_ms=step_ms, images_per_sec=images_per_sec)
+                     step_ms=step_ms, images_per_sec=images_per_sec,
+                     stopped_early=stopped, test_losses=test_losses)

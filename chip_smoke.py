@@ -44,8 +44,9 @@ Phases (any failure raises, and the script exits nonzero):
    --image-size-override 224 --batch-size 64 --epochs 3 --debug-step
    --fused-update on --augment-placement step --fused-augment on`` (bf16,
    heads 4096/256, random weights from the seed, both views made in the
-   step from raw uint8 batches) through the CLI's config and the trainer,
-   with every launch counter set to 0 just before and read just after: 3
+   step from raw uint8 batches, its per-epoch checkpoints under a
+   temporary ``--model-dir`` removed after) through the CLI's config and
+   the trainer, with every launch counter set to 0 just before and read just after: 3
    optimizer steps, every loss finite, K2 = K1a = K1b = 1 launch per step.
    Then one more step on the trained state: the params must move, the
    target must be tau t + (1 - tau) p', the plain unfused chain applied to
@@ -56,8 +57,25 @@ Phases (any failure raises, and the script exits nonzero):
    with K2, with the unfused chain and with no augmentation (in turns,
    twice), and a torch.profiler breakdown of 3 steps of each by kernel
    kind;
-6. prints the ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
-   "device": ...}`` line.
+6. checkpoint — the headline run without ``--debug-step``, ``--epochs 2``
+   (8 steps an epoch), under a temporary ``--model-dir``, cuDNN
+   deterministic, counters set to 0 before and read after each run: an
+   uninterrupted run (16 steps, K2 = K1a = K1b = 16 launches, ``ckpt-0``
+   and ``ckpt-1``, ``meta.json`` as the JAX saver's rules give it for the
+   two test losses); a run that takes SIGTERM from its loader after batch
+   3 of epoch 1 (exit 143, a checkpoint of epoch 1 at a mid-epoch step s
+   equal to the live state bit for bit) and its relaunch (epoch 1
+   re-entered at batch s - 8, 16 - s steps and launches of each kernel,
+   its losses against the uninterrupted run's, rtol = atol = 3e-2, and
+   whether they are bitwise equal); save and restore of the trained state
+   on their own (snapshot, write and read times, bytes, the restore
+   bitwise); ``serve --checkpoint`` of the trained run (24/24 requests,
+   no kernel launched, a bucket-8 batch against the trained state's
+   ``frozen_representation_fn`` at 3e-2 in bf16, and no more than the
+   parameters and statistics held on the card);
+7. prints the ``{"kernels": [...]}`` line (launches on the checkpoint
+   phase's uninterrupted run, and per path), then, last, the ``{"ok":
+   true, "device": ...}`` line.
 """
 import json
 import math
@@ -80,6 +98,14 @@ TRAIN_ARGV = ["--task", "fake", "--arch", "resnet50",
               "--epochs", "3", "--debug-step", "--fused-update", "on",
               "--augment-placement", "step", "--fused-augment", "on"]
 RN50_PADDED = 35_089_024           # the ResNet-50 BYOL segment layout
+# the checkpoint phase: the headline run without --debug-step, 2 epochs of
+# 8 steps (512 fake samples at batch 64)
+CKPT_ARGV = ["--task", "fake", "--arch", "resnet50",
+             "--image-size-override", "224", "--batch-size", "64",
+             "--epochs", "2", "--fused-update", "on",
+             "--augment-placement", "step", "--fused-augment", "on"]
+CKPT_STEPS = 16
+SIGTERM_AFTER = (1, 3)             # epoch, batches of it yielded
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -552,6 +578,8 @@ def check_fused_update(card):
 def run_training(card):
     """The training path: the headline CLI config through the trainer."""
     import dataclasses
+    import shutil
+    import tempfile
 
     import torch
     from byol_tpu_torch.cli import build_parser, config_from_args
@@ -565,15 +593,22 @@ def run_training(card):
     from byol_tpu_torch.training.steps import make_train_step
     from byol_tpu_torch.training.trainer import _to_device, fit
 
-    cfg = config_from_args(build_parser().parse_args(TRAIN_ARGV))
-    if not cfg.device.half:
-        raise AssertionError("training: the headline run is bf16")
-    loader = get_loader(cfg.replace(device=dataclasses.replace(
-        cfg.device, num_replicas=1)))
-    t0 = time.perf_counter()
-    _zero_counters()
-    result = fit(cfg, device=torch.device("cuda"), loader=loader)
-    counts = _read_counters()
+    # fit checkpoints every epoch: under a directory of its own, removed
+    # after, so that a second run of the script trains again
+    model_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        cfg = config_from_args(build_parser().parse_args(
+            TRAIN_ARGV + ["--model-dir", model_dir]))
+        if not cfg.device.half:
+            raise AssertionError("training: the headline run is bf16")
+        loader = get_loader(cfg.replace(device=dataclasses.replace(
+            cfg.device, num_replicas=1)))
+        t0 = time.perf_counter()
+        _zero_counters()
+        result = fit(cfg, device=torch.device("cuda"), loader=loader)
+        counts = _read_counters()
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
     steps = len(result.step_losses)
     print(f"training: {steps} steps in {time.perf_counter() - t0:.1f}s "
           f"(build included), losses {result.step_losses}, launches "
@@ -699,6 +734,262 @@ def run_training(card):
     return counts
 
 
+def _trees_bitwise(a, b):
+    """Two canonical trees hold the same keys, ints and bits."""
+    import torch
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_trees_bitwise(a[k], b[k]) for k in a))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    return a == b
+
+
+def _states_bitwise(a, b):
+    """Every flat buffer, BatchNorm statistic and counter of two states."""
+    import torch
+    sa, sb = a.batch_stats(), b.batch_stats()
+    return (all(torch.equal(getattr(a, n), getattr(b, n))
+                for n in ("params", "target", "momentum"))
+            and sa.keys() == sb.keys()
+            and all(torch.equal(sa[k], sb[k]) for k in sa)
+            and (a.step, a.count, a.ema_step) == (b.step, b.count,
+                                                  b.ema_step))
+
+
+def run_checkpoint(card):
+    """The checkpoint path: the headline training config without
+    --debug-step, 2 epochs of 8 steps, under a temporary --model-dir,
+    cuDNN deterministic.  An uninterrupted run; a run that takes SIGTERM
+    mid-epoch and its relaunch; save and restore on their own; serving the
+    trained checkpoint.  Returns the launch counts of the uninterrupted run
+    and of the relaunch."""
+    import dataclasses
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+    from byol_tpu_torch.checkpoint import CheckpointStore
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.core.config import resolve, run_name
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.serving import cli as serve_cli
+    from byol_tpu_torch.serving.service import ServeConfig, build_service
+    from byol_tpu_torch.training import trainer
+    from byol_tpu_torch.training.linear_eval import frozen_representation_fn
+    from byol_tpu_torch.training.state import canonical_state, load_canonical
+
+    cuda = torch.device("cuda")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.backends.cudnn.deterministic = True
+    try:
+        def config(name):
+            return config_from_args(build_parser().parse_args(
+                CKPT_ARGV + ["--model-dir", os.path.join(root, name)]))
+
+        def run_dir(cfg):
+            return os.path.join(cfg.model.model_dir, run_name(cfg))
+
+        # 1. uninterrupted
+        cfg1 = config("uninterrupted")
+        loader = get_loader(cfg1)
+        t0 = time.perf_counter()
+        _zero_counters()
+        run1 = trainer.fit(cfg1, device=cuda, loader=loader)
+        counts1 = _read_counters()
+        losses1 = run1.step_losses
+        print(f"checkpoint: uninterrupted: {len(losses1)} steps in "
+              f"{time.perf_counter() - t0:.1f}s, step {run1.state.step}, "
+              f"launches (flash, segment_norms, fused_apply, two_view) = "
+              f"{counts1}, test losses {run1.test_losses} [{card}]",
+              flush=True)
+        if (len(losses1) != CKPT_STEPS or run1.state.step != CKPT_STEPS
+                or not all(map(math.isfinite, losses1 + run1.test_losses))):
+            raise AssertionError(f"checkpoint: uninterrupted run took "
+                                 f"{len(losses1)} steps, losses {losses1}")
+        if counts1 != (0, CKPT_STEPS, CKPT_STEPS, CKPT_STEPS):
+            raise AssertionError(f"checkpoint: launches {counts1}")
+        store = CheckpointStore(run_dir(cfg1))
+        epochs, meta = store.epochs(), store.read_meta()
+        store.close()
+        m0, m1 = run1.test_losses
+        better = m1 < m0       # the JAX saver's rules; burn-in int(0.1 * 2)
+        want = {"last_epoch": 1, "larger_is_better": False,
+                "history": [{"epoch": 0, "metric": m0},
+                            {"epoch": 1, "metric": m1}],
+                "best_epoch": 1 if better else 0,
+                "best_metric": m1 if better else m0,
+                "stall_count": 0 if better else 1}
+        print(f"checkpoint: uninterrupted: ckpt epochs {epochs}, meta.json "
+              f"{meta}", flush=True)
+        if epochs != (0, 1) or meta != want:
+            raise AssertionError(f"checkpoint: epochs {epochs}, meta {meta}, "
+                                 f"want {want}")
+
+        # 2. SIGTERM mid-epoch, then the relaunch
+        cfg2 = config("interrupted")
+        sig_epoch, sig_after = SIGTERM_AFTER
+
+        def signalling(epoch):
+            for i, batch in enumerate(loader.make_train_iter(epoch)):
+                yield batch
+                if (epoch, i + 1) == SIGTERM_AFTER:
+                    signal.raise_signal(signal.SIGTERM)
+        live = []
+        real_setup = trainer.setup_training
+
+        def recording_setup(*args, **kwargs):
+            out = real_setup(*args, **kwargs)
+            live.append(out[1])
+            return out
+        trainer.setup_training = recording_setup
+        code = None
+        try:
+            trainer.fit(cfg2, device=cuda, loader=dataclasses.replace(
+                loader, make_train_iter=signalling))
+        except SystemExit as e:
+            code = e.code
+        finally:
+            trainer.setup_training = real_setup
+        s = live[0].step
+        store = CheckpointStore(run_dir(cfg2))
+        tree, at_epoch = store.restore()
+        store.close()
+        same = _trees_bitwise(tree, canonical_state(live[0]))
+        print(f"checkpoint: SIGTERM after batch {sig_after} of epoch "
+              f"{sig_epoch}: exit {code}, checkpoint of epoch {at_epoch} at "
+              f"step s = {tree['step']} (live step {s}); saved tree == live "
+              f"state bitwise: {same}", flush=True)
+        if (code != 143 or at_epoch != sig_epoch or tree["step"] != s
+                or not 9 <= s <= 15 or not same):
+            raise AssertionError("checkpoint: the SIGTERM checkpoint is wrong")
+        del live[:]
+        drawn = {}
+
+        def counting(epoch):
+            for batch in loader.make_train_iter(epoch):
+                drawn[epoch] = drawn.get(epoch, 0) + 1
+                yield batch
+        _zero_counters()
+        run2 = trainer.fit(cfg2, device=cuda, loader=dataclasses.replace(
+            loader, make_train_iter=counting))
+        counts2 = _read_counters()
+        k = CKPT_STEPS - s
+        want_losses = losses1[s:]
+        err = max(abs(a - b) for a, b in zip(run2.step_losses, want_losses))
+        close = bool(np.allclose(run2.step_losses, want_losses,
+                                 rtol=SLICE_TOL, atol=SLICE_TOL))
+        bitwise = run2.step_losses == want_losses
+        state_err = (run2.state.params - run1.state.params).abs().max().item()
+        print(f"checkpoint: relaunch: batches drawn per epoch {drawn} (epoch "
+              f"1 re-entered at batch {s - 8}), {len(run2.step_losses)} "
+              f"steps to step {run2.state.step}, launches {counts2}; losses "
+              f"of steps {s + 1}..{CKPT_STEPS} vs the uninterrupted run's: "
+              f"max abs err {err:.3e} (rtol = atol = {SLICE_TOL}) "
+              f"ok={close}, bitwise {bitwise} under deterministic cuDNN; "
+              f"final params max abs diff {state_err:.3e}, whole state "
+              f"bitwise {_states_bitwise(run2.state, run1.state)} "
+              f"[{card}]", flush=True)
+        if (drawn != {1: 8} or len(run2.step_losses) != k
+                or run2.state.step != CKPT_STEPS or counts2 != (0, k, k, k)
+                or not close):
+            raise AssertionError("checkpoint: the relaunch is wrong")
+
+        # 3. save and restore on their own, at the trained state
+        state = run1.state
+        store = CheckpointStore(os.path.join(root, "alone"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = canonical_state(state)
+        t1 = time.perf_counter()
+        store.save(0, tree)
+        t2 = time.perf_counter()
+        store.wait()
+        t3 = time.perf_counter()
+        path = os.path.join(store.directory, "ckpt-0", "state.pt")
+        n_bytes = os.path.getsize(path)
+        rcfg = resolve(cfg1.replace(device=dataclasses.replace(
+            cfg1.device, num_replicas=1)),
+            num_train_samples=loader.num_train_samples,
+            num_test_samples=loader.num_test_samples,
+            output_size=loader.output_size, input_shape=loader.input_shape)
+        fresh = real_setup(rcfg, cuda,
+                           generator=torch.Generator().manual_seed(99))[1]
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        back, _ = store.restore(epoch=0)
+        t5 = time.perf_counter()
+        load_canonical(fresh, back)
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        store.close()
+        restored = _states_bitwise(fresh, state)
+        print(f"checkpoint: save alone: snapshot (device to host, "
+              f"canonical tree) {(t1 - t0) * 1e3:.1f} ms, save() call "
+              f"{(t2 - t1) * 1e3:.1f} ms, write on the thread until wait() "
+              f"returns {(t3 - t1) * 1e3:.1f} ms, file {n_bytes} bytes "
+              f"({n_bytes / (t3 - t1) / 1e9:.2f} GB/s); restore: read "
+              f"{(t5 - t4) * 1e3:.1f} ms, load_canonical (host to device) "
+              f"{(t6 - t5) * 1e3:.1f} ms; restored state bitwise: "
+              f"{restored} [{card}]", flush=True)
+        if not restored:
+            raise AssertionError("checkpoint: restore is not bitwise")
+        del fresh, back, tree
+
+        # 4. serve the uninterrupted run's checkpoint
+        serve_argv = ["--arch", "resnet50", "--image-size-override", "224",
+                      "--checkpoint", run_dir(cfg1)]
+        _zero_counters()
+        rc = serve_cli.main(serve_argv + ["--smoke", "24"])
+        served_counts = _read_counters()
+        print(f"checkpoint: serve --checkpoint --smoke 24: rc {rc}, "
+              f"launches {served_counts}", flush=True)
+        if rc != 0 or served_counts != (0, 0, 0, 0):
+            raise AssertionError("checkpoint: serving the checkpoint failed")
+        scfg = serve_cli.config_from_args(
+            serve_cli.build_serve_parser().parse_args(serve_argv))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        service = build_service(scfg, ServeConfig(min_bucket=8,
+                                                  max_bucket=64),
+                                checkpoint_dir=run_dir(cfg1), device=cuda)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() - before
+        param_bytes = 4 * sum(state.seg.sizes)
+        stat_bytes = sum(b.numel() * b.element_size()
+                         for b in state.batch_stats().values())
+        # the service keeps its weights in bf16: their bytes, the fp32
+        # statistics and 8 MiB of slack; a leaked momentum or target tree
+        # (70 MB even in bf16) overshoots this by far
+        resident_limit = param_bytes // 2 + stat_bytes + 8 * 2**20
+        rows8 = np.random.RandomState(3).rand(8, 224, 224, 3).astype(
+            np.float32)
+        got = service.engine.embed(rows8)
+        want = frozen_representation_fn(state.net, half=True)(
+            torch.from_numpy(rows8).to(cuda)).cpu().numpy()
+        emb_err = float(np.abs(got - want).max())
+        emb_ok = bool(np.allclose(got, want, rtol=SLICE_TOL, atol=SLICE_TOL))
+        print(f"checkpoint: served bucket 8 vs the trained state's "
+              f"frozen_representation_fn, bf16: max abs err {emb_err:.5f} "
+              f"(rtol = atol = {SLICE_TOL}) ok={emb_ok}; the service holds "
+              f"{resident} bytes on the card, limit {resident_limit} = bf16 "
+              f"params {param_bytes // 2} + statistics {stat_bytes} + 8 MiB "
+              f"(momentum + target would add {param_bytes} in bf16) "
+              f"[{card}]", flush=True)
+        if got.shape != (8, 2048) or not emb_ok:
+            raise AssertionError("checkpoint: served embeddings disagree")
+        if resident > resident_limit:
+            raise AssertionError("checkpoint: serving holds more than the "
+                                 "forward pass's weights on the card")
+        del service
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+    return counts1, counts2
+
+
 def run_slice(card):
     """The main path: serve ViT-B/16 through build_service on the card."""
     import numpy as np
@@ -822,6 +1113,8 @@ def main() -> int:
     launches = run_slice(card)
     torch.cuda.empty_cache()
     train_counts = run_training(card)
+    torch.cuda.empty_cache()
+    ckpt_counts, resumed_counts = run_checkpoint(card)
 
     main_row = next(r for r in flash_rows
                     if r["shape"] == [64, HEADS, SEQ, 64]
@@ -842,15 +1135,22 @@ def main() -> int:
         "shape": main_row["shape"],
         "ok": all(r["ok"] for r in flash_rows),
     }]
-    for name, line, launches in (
-            ("segment_norms", 198, train_counts[1]),
-            ("fused_apply", 215, train_counts[2])):
+
+    def by_path(i):
+        """A kernel's launches on each training path: the checkpoint
+        phase's uninterrupted run is this slice's main path."""
+        return {"training": train_counts[i],
+                "checkpoint, uninterrupted": ckpt_counts[i],
+                "checkpoint, relaunch after SIGTERM": resumed_counts[i]}
+    for name, line, i in (("segment_norms", 198, 1),
+                          ("fused_apply", 215, 2)):
         row = k1_rows[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "byol_tpu_torch/ops/csrc/fused_update.cu",
             "replaces": f"byol_tpu/ops/fused_update.py:{line}",
-            "launches": launches, "max_abs_err": row["max_abs_err"],
+            "launches": ckpt_counts[i], "launches_by_path": by_path(i),
+            "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "elements": row["elements"],
@@ -860,7 +1160,7 @@ def main() -> int:
         "name": "two_view", "route": "cuda",
         "source": "byol_tpu_torch/ops/csrc/fused_augment.cu",
         "replaces": "byol_tpu/ops/fused_augment.py:179",
-        "launches": train_counts[3],
+        "launches": ckpt_counts[3], "launches_by_path": by_path(3),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],

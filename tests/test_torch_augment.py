@@ -219,9 +219,9 @@ AUG_DRIVE = ["--no-cuda", "--task", "fake", "--arch", "resnet18",
              "--fused-augment", "on"]
 
 
-def test_cli_trains_with_in_step_augmentation_on_the_cpu(capsys):
+def test_cli_trains_with_in_step_augmentation_on_the_cpu(capsys, tmp_path):
     from byol_tpu_torch.cli import main
-    assert main(AUG_DRIVE) == 0
+    assert main(AUG_DRIVE + ["--model-dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "augment_placement='step'" in out
     assert len([x for x in out.splitlines() if x.startswith("epoch ")]) == 2

@@ -321,9 +321,11 @@ CPU_DRIVE = ["--no-cuda", "--task", "fake", "--arch", "resnet18",
              "--projection-size", "16"]
 
 
-def test_cli_trains_on_the_cpu(capsys):
+def test_cli_trains_on_the_cpu(capsys, tmp_path):
     from byol_tpu_torch.cli import main
-    assert main(CPU_DRIVE) == 0
+    # a fresh --model-dir: the run checkpoints there, and a relaunch in a
+    # directory holding its checkpoints would resume and train nothing
+    assert main(CPU_DRIVE + ["--model-dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     epochs = [line for line in out.splitlines() if line.startswith("epoch ")]
     assert len(epochs) == 2 and all("test loss" in e for e in epochs)
