@@ -1,7 +1,8 @@
 """``python -m byol_tpu_torch [flags]``: BYOL pretraining (counterpart of
 byol_tpu/cli.py).  The flags keep the JAX package's spellings and defaults;
 this slice reads the ones below, the rest of the JAX surface comes later
-(ROADMAP.md, section 1 item 15).
+(ROADMAP.md, section 1 item 15).  ``--download`` is refused when nonzero:
+the port reads local files only.
 
 It runs on the card unless ``--no-cuda`` asks for the CPU; with no card and
 no ``--no-cuda`` it exits 2 before building anything.  Checkpoints go to
@@ -28,7 +29,21 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m byol_tpu_torch",
         description="BYOL pretraining on one CUDA card (PyTorch port)")
     p.add_argument("--task", type=str, default="image_folder",
-                   help="dataset; this slice ports 'fake' and 'synth'")
+                   help="image_folder | cifar10 | cifar100 | mnist | "
+                        "fashion_mnist | digits | fake | synth")
+    p.add_argument("--data-dir", type=str, default="./data",
+                   help="where the datasets' files are (read only; "
+                        "nothing is downloaded)")
+    p.add_argument("--download", type=int, default=0,
+                   help="refused when nonzero: the port reads local files "
+                        "only")
+    p.add_argument("--num-synth-samples", type=int, default=0,
+                   help="dataset size for --task synth (test = 1/10th); "
+                        "0 = default 20000")
+    p.add_argument("--valid-fraction", type=float, default=0.0,
+                   help="hold out this fraction of train as a validation "
+                        "split, evaluated each epoch; image_folder also "
+                        "accepts an on-disk valid/ root, which wins")
     p.add_argument("--uid", type=str, default="",
                    help="prefix of the run name (the checkpoint directory)")
     p.add_argument("--batch-size", type=int, default=4096)
@@ -62,6 +77,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernel K2 (ops/fused_augment.py); requires "
                         "--augment-placement step")
     p.add_argument("--color-jitter-strength", type=float, default=1.0)
+    p.add_argument("--aug-spec", type=str, default="reference",
+                   choices=("reference", "paper"),
+                   help="'reference' = the symmetric reference stack; "
+                        "'paper' = BYOL's asymmetric recipe (solarize + "
+                        "asymmetric blur); 'paper' needs --data-backend tf")
+    p.add_argument("--data-backend", type=str, default="tf",
+                   choices=("tf", "native", "device"),
+                   help="who makes the train views under loader placement: "
+                        "'tf' = the torch host path on DataLoader workers, "
+                        "'native' = the C++ host pipeline, 'device' = the "
+                        "card from host draws")
+    p.add_argument("--workers-per-replica", type=int, default=2,
+                   help="DataLoader workers (tf) or C++ threads (native)")
     p.add_argument("--debug-step", action="store_true",
                    help="one minibatch per epoch")
     p.add_argument("--seed", type=int, default=1234)
@@ -82,11 +110,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def config_from_args(args: argparse.Namespace) -> Config:
     return Config(
-        task=TaskConfig(task=args.task, batch_size=args.batch_size,
-                        epochs=args.epochs, uid=args.uid,
+        task=TaskConfig(task=args.task, data_dir=args.data_dir,
+                        batch_size=args.batch_size, epochs=args.epochs,
+                        download=bool(args.download), uid=args.uid,
                         image_size_override=args.image_size_override,
+                        data_backend=args.data_backend,
                         augment_placement=args.augment_placement,
-                        fused_augment=args.fused_augment),
+                        fused_augment=args.fused_augment,
+                        num_synth_samples=args.num_synth_samples,
+                        valid_fraction=args.valid_fraction),
         model=ModelConfig(arch=args.arch,
                           projection_size=args.projection_size,
                           head_latent_size=args.head_latent_size,
@@ -94,11 +126,14 @@ def config_from_args(args: argparse.Namespace) -> Config:
                           model_dir=args.model_dir),
         regularizer=RegularizerConfig(
             weight_decay=args.weight_decay,
-            color_jitter_strength=args.color_jitter_strength),
+            color_jitter_strength=args.color_jitter_strength,
+            aug_spec=args.aug_spec),
         optim=OptimConfig(lr=args.lr, warmup=args.warmup,
                           early_stop=args.early_stop,
                           fused_update=args.fused_update),
-        device=DeviceConfig(num_replicas=1, debug_step=args.debug_step,
+        device=DeviceConfig(num_replicas=1,
+                            workers_per_replica=args.workers_per_replica,
+                            debug_step=args.debug_step,
                             seed=args.seed, half=args.half,
                             fault_at_step=args.fault_at_step,
                             save_on_signal=args.save_on_signal))

@@ -3,10 +3,17 @@ to what one device needs:
 
 - the epoch loop runs exactly ``steps_per_train_epoch`` optimizer steps
   (wrapping the loader if it runs short), or one under ``debug_step``;
-- one eval pass per epoch, every batch padded to the train batch with a
+- the train batches come through :func:`prefetch_to_device`: a producer
+  thread makes batch N+1 (on the host, or on the card under
+  ``data_backend='device'``) and copies it while step N runs; the first
+  batch of a run is held to the input contract (``_range_check``);
+- one eval pass per epoch on the test split, and on the valid split when
+  the loader has one, every batch padded to the train batch with a
   validity mask (one shape, pad rows out of every metric);
 - one line per epoch: loss, BYOL and linear-probe losses, top-1/5, wall
-  ms per step and images per second, then the same metrics on the test set;
+  ms per step and images per second, then the same metrics on the test
+  set; then the input pipeline's line (``input[Epoch N]``: H2D MiB per
+  step, starved steps, fill) and, with a valid split, a ``valid`` line;
 - a checkpoint per epoch through :class:`ModelSaver` under
   ``model_dir/run_name(cfg)``, on the test loss, with burn-in
   ``0.1 * epochs`` and patience 10; early stop (``early_stop``) restores
@@ -27,6 +34,7 @@ item 13).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import signal
@@ -40,6 +48,9 @@ import torch
 from byol_tpu_torch.checkpoint import ModelSaver
 from byol_tpu_torch.core.config import Config, resolve, run_name
 from byol_tpu_torch.data.loader import LoaderBundle, get_loader, pad_batch
+from byol_tpu_torch.data.prefetch import prefetch_to_device
+from byol_tpu_torch.observability.meters import (InputPipelineMeter,
+                                                 input_log_line)
 from byol_tpu_torch.training.build import setup_training
 from byol_tpu_torch.training.state import (TrainState, canonical_state,
                                            load_canonical)
@@ -56,6 +67,10 @@ class FitResult:
     images_per_sec: float           # last epoch
     stopped_early: bool = False
     test_losses: List[float] = dataclasses.field(default_factory=list)
+    valid_metrics: Dict[str, float] = dataclasses.field(default_factory=dict)
+    valid_losses: List[float] = dataclasses.field(default_factory=list)
+    input_pipeline: Dict[str, float] = dataclasses.field(
+        default_factory=dict)       # the last epoch's InputPipelineMeter
 
 
 def _range_check(batch, input_shape) -> None:
@@ -142,11 +157,12 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
     # devices it finds)
     cfg = cfg.replace(device=dataclasses.replace(cfg.device, num_replicas=1))
     if loader is None:
-        loader = get_loader(cfg)
+        loader = get_loader(cfg, device=device)
     rcfg = resolve(cfg, num_train_samples=loader.num_train_samples,
                    num_test_samples=loader.num_test_samples,
                    output_size=loader.output_size,
-                   input_shape=loader.input_shape)
+                   input_shape=loader.input_shape,
+                   num_valid_samples=loader.num_valid_samples)
     saver = ModelSaver(
         os.path.join(cfg.model.model_dir, run_name(cfg)),
         early_stop=cfg.optim.early_stop,
@@ -169,14 +185,14 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
               f"half={cfg.device.half}, on {device}", flush=True)
     batch_size = rcfg.global_batch_size
 
-    def run_eval() -> Dict[str, float]:
-        test = _Sums()
-        for batch in loader.test_loader:
-            test.update(eval_step(state, _to_device(
+    def run_eval(batches=None) -> Dict[str, float]:
+        sums = _Sums()
+        for batch in batches if batches is not None else loader.test_loader:
+            sums.update(eval_step(state, _to_device(
                 pad_batch(batch, batch_size), device)))
             if cfg.device.debug_step:
                 break
-        return test.result()
+        return sums.result()
 
     if saver.stopped_early:
         # the run already stopped early (the durable marker): evaluate the
@@ -236,37 +252,52 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
 
     step_losses: List[float] = []
     test_losses: List[float] = []
+    valid_losses: List[float] = []
     train_metrics: Dict[str, float] = {}
     test_metrics: Dict[str, float] = {}
+    valid_metrics: Dict[str, float] = {}
     step_ms = images_per_sec = 0.0
     stopped = checked = False
+
+    def tapped(skip: int) -> Iterator:
+        """The epoch's batches after the ``skip`` a resume re-enters past,
+        the run's first one held to the input contract.  Runs in the
+        prefetch thread."""
+        nonlocal checked
+        for i, batch in enumerate(
+                _epoch_batches(loader, rcfg.steps_per_train_epoch)):
+            if i < skip:
+                continue
+            if not checked:
+                _range_check(batch, rcfg.input_shape)
+                checked = True
+            yield batch
+
+    meter = InputPipelineMeter()
     try:
         for epoch in range(init_epoch, cfg.task.epochs):
             loader.set_all_epochs(epoch)
             skip = resume_skip if epoch == resume_epoch else 0
             acc, losses = _Sums(), []
+            meter = InputPipelineMeter()
             _sync(device)
             t0 = time.perf_counter()
-            for i, batch in enumerate(
-                    _epoch_batches(loader, rcfg.steps_per_train_epoch)):
-                if i < skip:
-                    continue
-                if not checked:
-                    _range_check(batch, rcfg.input_shape)
-                    checked = True
-                metrics = train_step(state, _to_device(batch, device))
-                acc.update(metrics)
-                losses.append(metrics["loss_mean"])
-                maybe_preempt_save()
-                if (cfg.device.fault_at_step
-                        and state.step == cfg.device.fault_at_step):
-                    # fault injection: die mid-epoch without saving, as a
-                    # lost worker does; a relaunch resumes from the last
-                    # checkpoint
-                    raise SystemExit(f"fault injected at step {state.step} "
-                                     "(--fault-at-step)")
-                if cfg.device.debug_step:
-                    break
+            with contextlib.closing(prefetch_to_device(
+                    tapped(skip), device, meter=meter)) as batches:
+                for batch in batches:
+                    metrics = train_step(state, batch)
+                    acc.update(metrics)
+                    losses.append(metrics["loss_mean"])
+                    maybe_preempt_save()
+                    if (cfg.device.fault_at_step
+                            and state.step == cfg.device.fault_at_step):
+                        # fault injection: die mid-epoch without saving, as
+                        # a lost worker does; a relaunch resumes from the
+                        # last checkpoint
+                        raise SystemExit(f"fault injected at step "
+                                         f"{state.step} (--fault-at-step)")
+                    if cfg.device.debug_step:
+                        break
             _sync(device)
             elapsed = time.perf_counter() - t0
             train_metrics = acc.result()
@@ -285,6 +316,15 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
                       f"{len(losses)} steps, {step_ms:.1f} ms/step, "
                       f"{images_per_sec:.1f} img/s | test "
                       f"{_fmt(test_metrics)}", flush=True)
+                print(input_log_line(epoch, meter), flush=True)
+            if loader.make_valid_iter is not None:
+                # early stop keys off the TEST loss, as in the JAX trainer
+                valid_metrics = run_eval(loader.valid_loader)
+                valid_losses.append(valid_metrics["loss_mean"])
+                maybe_preempt_save()
+                if verbose:
+                    print(f"epoch {epoch}: valid {_fmt(valid_metrics)}",
+                          flush=True)
             if saver(test_metrics["loss_mean"], epoch, canonical_state(state)):
                 tree, _ = saver.restore(best=True)
                 load_canonical(state, tree)
@@ -302,4 +342,6 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
     return FitResult(state=state, epoch=epoch, train_metrics=train_metrics,
                      test_metrics=test_metrics, step_losses=step_losses,
                      step_ms=step_ms, images_per_sec=images_per_sec,
-                     stopped_early=stopped, test_losses=test_losses)
+                     stopped_early=stopped, test_losses=test_losses,
+                     valid_metrics=valid_metrics, valid_losses=valid_losses,
+                     input_pipeline=meter.result())

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive byol_tpu_torch's serving and training paths once on one CUDA card,
-and check them.
+"""Drive byol_tpu_torch's serving, training and input paths once on one
+CUDA card, and check them.
 
     python3 chip_smoke.py            # from the repository root; one card
 
@@ -73,9 +73,28 @@ Phases (any failure raises, and the script exits nonzero):
    no kernel launched, a bucket-8 batch against the trained state's
    ``frozen_representation_fn`` at 3e-2 in bf16, and no more than the
    parameters and statistics held on the card);
-7. prints the ``{"kernels": [...]}`` line (launches on the checkpoint
-   phase's uninterrupted run, and per path), then, last, the ``{"ok":
-   true, "device": ...}`` line.
+7. input — the slice's command under loader placement, ``--task fake
+   --arch resnet50 --image-size-override 224 --batch-size 64 --epochs 2
+   --fused-update on`` (256 images: 2 epochs of 4 steps), through the
+   CLI's config and the trainer, once per ``--data-backend`` (``tf``, the
+   torch host path on DataLoader workers; ``native``, the C++ pipeline,
+   with ``--valid-fraction 0.25``; ``device``, the unfused chain on the
+   card from host draws), then ``--aug-spec paper`` under ``tf`` (2
+   steps) and ``--task synth`` under ``native`` (8 steps, the loss must
+   fall), counters set to 0 before and read after each run: every loss
+   finite, K1a = K1b = one launch per step, K2 none, every train batch
+   with view1 != view2 in every row and both in [0, 1], the valid loss
+   once an epoch.  Then 10 timed steps of each backend (tf and native at
+   2 and 6 workers) beside the step placement's K2 path, fed by
+   ``prefetch_to_device`` as the trainer is, in turns, and a
+   torch.profiler breakdown of 3 steps of each (images/s, device-busy
+   share, starved steps, H2D MiB per step); then ``--task image_folder``
+   on a tree of 2 classes x 64 JPEGs at 256 px written with PIL (2 steps
+   under ``native``, which moves to ``tf`` where the library has no
+   libjpeg, and 2 under ``tf``), the tree removed after;
+8. prints the ``{"input_arms": ...}`` and ``{"kernels": [...]}`` lines
+   (launches on the checkpoint phase's uninterrupted run, and per path),
+   then, last, the ``{"ok": true, "device": ...}`` line.
 """
 import json
 import math
@@ -990,6 +1009,259 @@ def run_checkpoint(card):
     return counts1, counts2
 
 
+# the input phase: the slice's command under loader placement, 2 epochs of
+# 4 steps (256 fake images at batch 64), each data backend making the views
+INPUT_ARGV = ["--task", "fake", "--arch", "resnet50",
+              "--image-size-override", "224", "--batch-size", "64",
+              "--epochs", "2", "--fused-update", "on"]
+INPUT_SAMPLES = 256
+INPUT_VALID_SAMPLES = 344          # 86 held out by --valid-fraction 0.25
+INPUT_STEPS = 8
+INPUT_SHORT_SAMPLES = 128          # the paper spec's run: 1 epoch, 2 steps
+INPUT_TIMED = 10                   # timed steps per arm and turn
+IMAGE_TREE = (2, 64, 256)          # classes, train images each, pixels
+
+
+def _views_ok(batch):
+    """view1 != view2 in every row, both in [0, 1] (host arrays or card
+    tensors)."""
+    import torch
+    v1, v2 = (torch.as_tensor(batch[k]) for k in ("view1", "view2"))
+    differ = (v1 != v2).flatten(1).any(1).all().item()
+    return bool(differ and min(v1.min().item(), v2.min().item()) >= 0.0
+                and max(v1.max().item(), v2.max().item()) <= 1.0)
+
+
+def _input_config(extra, model_dir):
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    return config_from_args(build_parser().parse_args(
+        INPUT_ARGV + extra + ["--model-dir", model_dir]))
+
+
+def _input_run(name, extra, model_dir, samples=INPUT_SAMPLES,
+               steps=INPUT_STEPS, loader_fn=None):
+    """One run of the slice's command through the CLI's config and the
+    trainer, every train batch checked on its way in; -> (result,
+    launch counts)."""
+    import dataclasses
+
+    import torch
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.training.trainer import fit
+
+    cuda = torch.device("cuda")
+    cfg = _input_config(extra, model_dir)
+    loader = (loader_fn(cfg) if loader_fn is not None else
+              get_loader(cfg, num_fake_samples=samples, device=cuda))
+    checked = []
+
+    def checking(epoch):
+        for batch in loader.make_train_iter(epoch):
+            checked.append(_views_ok(batch))
+            yield batch
+    t0 = time.perf_counter()
+    _zero_counters()
+    result = fit(cfg, device=cuda, loader=dataclasses.replace(
+        loader, make_train_iter=checking))
+    counts = _read_counters()
+    n = len(result.step_losses)
+    print(f"input: {name}: {n} steps in {time.perf_counter() - t0:.1f}s, "
+          f"losses {[round(x, 4) for x in result.step_losses]}, valid "
+          f"losses {result.valid_losses}, launches (flash, segment_norms, "
+          f"fused_apply, two_view) = {counts}, {len(checked)} batches drawn, "
+          f"view1 != view2 in every row and both in [0, 1]: {all(checked)}",
+          flush=True)
+    if (n != steps or not all(map(math.isfinite, result.step_losses))
+            or counts != (0, n, n, 0) or not checked or not all(checked)):
+        raise AssertionError(f"input: {name}: the run is wrong")
+    return result, counts
+
+
+def _input_arms(card, model_dir):
+    """Steps of ResNet-50 at batch 64 with each backend making the views
+    (through prefetch_to_device, the trainer's feed) beside the step
+    placement's K2 path: INPUT_TIMED timed steps per arm, in turns, then a
+    torch.profiler breakdown of 3 steps of each."""
+    import dataclasses
+
+    import torch
+    from byol_tpu_torch.core.config import resolve
+    from byol_tpu_torch.core.precision import get_policy
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.data.prefetch import prefetch_to_device
+    from byol_tpu_torch.observability.meters import InputPipelineMeter
+    from byol_tpu_torch.training.build import (build_tx, setup_training,
+                                               step_config)
+    from byol_tpu_torch.training.steps import make_train_step
+
+    cuda = torch.device("cuda")
+    arms = {"tf, 2 workers": ["--data-backend", "tf"],
+            "tf, 6 workers": ["--data-backend", "tf",
+                              "--workers-per-replica", "6"],
+            "native, 2 threads": ["--data-backend", "native"],
+            "native, 6 threads": ["--data-backend", "native",
+                                  "--workers-per-replica", "6"],
+            "device": ["--data-backend", "device"],
+            "step placement, K2": ["--augment-placement", "step",
+                                   "--fused-augment", "on"]}
+    state = None
+    feeds = {}
+    for name, extra in arms.items():
+        cfg = _input_config(extra, model_dir)
+        cfg = cfg.replace(device=dataclasses.replace(cfg.device,
+                                                     num_replicas=1))
+        loader = get_loader(cfg, num_fake_samples=INPUT_SAMPLES, device=cuda)
+        rcfg = resolve(cfg, num_train_samples=loader.num_train_samples,
+                       num_test_samples=loader.num_test_samples,
+                       output_size=loader.output_size,
+                       input_shape=loader.input_shape)
+        if state is None:
+            state = setup_training(rcfg, cuda)[1]
+        tx, schedule = build_tx(rcfg)
+        step = make_train_step(tx, step_config(rcfg), schedule,
+                               get_policy(cfg.device.half))
+
+        def endless(loader=loader):
+            epoch = 0
+            while True:
+                yield from loader.make_train_iter(epoch)
+                epoch += 1
+        feeds[name] = [step, endless, cfg.device.workers_per_replica]
+
+    def timed(name):
+        """-> (ms per step, starved steps, waited s, h2d bytes per step)
+        over the timed steps, after 2 that fill the pipeline."""
+        step, endless, _ = feeds[name]
+        meter = InputPipelineMeter()
+        batches = prefetch_to_device(endless(), cuda, meter=meter)
+        try:
+            for _ in range(2):
+                step(state, next(batches))
+            torch.cuda.synchronize()
+            starved, waited = meter.starved_steps, meter.wait_seconds
+            t0 = time.perf_counter()
+            for _ in range(INPUT_TIMED):
+                step(state, next(batches))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / INPUT_TIMED
+            return (ms, meter.starved_steps - starved,
+                    meter.wait_seconds - waited, meter.h2d_bytes_per_step())
+        finally:
+            batches.close()
+
+    turns = {name: [] for name in arms}
+    for name in list(arms) + list(arms)[::-1]:
+        turns[name].append(timed(name))
+    rows = {}
+    for name in arms:
+        step, endless, workers = feeds[name]
+        batches = prefetch_to_device(endless(), cuda)
+        try:
+            for _ in range(2):
+                step(state, next(batches))
+            prof = _device_profile(lambda: step(state, next(batches)), 3,
+                                   card, f"input arm {name}, resnet50 train "
+                                   f"step at batch 64, per step", top=0)
+        finally:
+            batches.close()
+        ms = [t[0] for t in turns[name]]
+        rows[name] = dict(
+            ms=ms, img_s=64e3 / min(ms), busy_ms=prof["busy_ms"],
+            wall_ms=prof["wall_ms"], h2d_mib=turns[name][0][3] / 2**20,
+            starved=[t[1] for t in turns[name]],
+            waited_ms=[round(t[2] * 1e3, 1) for t in turns[name]],
+            workers=workers)
+        print(f"input: arm {name}: {ms[0]:.3f} / {ms[1]:.3f} ms per step = "
+              f"{rows[name]['img_s']:.1f} img/s at best, {INPUT_TIMED} "
+              f"steps each turn; starved steps {rows[name]['starved']} of "
+              f"{INPUT_TIMED}, waited {rows[name]['waited_ms']} ms; h2d "
+              f"{rows[name]['h2d_mib']:.2f} MiB/step; profiled 3 steps: "
+              f"device busy {prof['busy_ms']:.3f} of {prof['wall_ms']:.3f} "
+              f"ms ({prof['busy_ms'] / prof['wall_ms']:.1%}); "
+              f"os.cpu_count() {os.cpu_count()}, workers or threads "
+              f"{workers} [{card}]", flush=True)
+    return rows
+
+
+def _write_image_tree(root):
+    import numpy as np
+    from PIL import Image
+    classes, per_class, px = IMAGE_TREE
+    rng = np.random.RandomState(0)
+    for split, n in (("train", per_class), ("test", per_class // 8)):
+        for c in range(classes):
+            d = os.path.join(root, split, f"class{c}")
+            os.makedirs(d)
+            for i in range(n):
+                img = rng.randint(0, 256, (px, px, 3), dtype=np.uint8)
+                Image.fromarray(img).save(os.path.join(d, f"{i}.jpg"),
+                                          quality=90)
+
+
+def run_input(card):
+    """The input phase: the slice's command under loader placement with
+    each data backend, the paper spec, synth, the timed arms and
+    image_folder.  Returns the launch counts of each run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from byol_tpu_torch.data.loader import get_loader
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_input_")
+    counts = {}
+    try:
+        for backend, extra, samples in (
+                ("tf", [], INPUT_SAMPLES),
+                ("native", ["--valid-fraction", "0.25"], INPUT_VALID_SAMPLES),
+                ("device", [], INPUT_SAMPLES)):
+            result, counts[f"input, {backend}"] = _input_run(
+                f"--data-backend {backend} {' '.join(extra)}".strip(),
+                ["--data-backend", backend] + extra,
+                os.path.join(root, backend), samples=samples)
+            if extra and len(result.valid_losses) != 2:
+                raise AssertionError("input: the valid split was not "
+                                     "evaluated each epoch")
+        _, counts["input, tf, paper spec"] = _input_run(
+            "--data-backend tf --aug-spec paper",
+            ["--data-backend", "tf", "--aug-spec", "paper", "--epochs", "1"],
+            os.path.join(root, "paper"), samples=INPUT_SHORT_SAMPLES, steps=2)
+        result, counts["input, synth, native"] = _input_run(
+            "--task synth --data-backend native --warmup 0",
+            ["--task", "synth", "--data-backend", "native", "--warmup", "0",
+             "--num-synth-samples", str(INPUT_SAMPLES)],
+            os.path.join(root, "synth"))
+        losses = result.step_losses
+        fell = np.mean(losses[-3:]) < np.mean(losses[:3])
+        print(f"input: synth loss falls over the {len(losses)} steps (mean "
+              f"of the last 3 {np.mean(losses[-3:]):.4f} < first 3 "
+              f"{np.mean(losses[:3]):.4f}): {fell}", flush=True)
+        if not fell:
+            raise AssertionError("input: the synth loss did not fall")
+
+        torch.cuda.empty_cache()
+        rows = _input_arms(card, os.path.join(root, "arms"))
+        torch.cuda.empty_cache()
+
+        tree = os.path.join(root, "tree")
+        t0 = time.perf_counter()
+        _write_image_tree(tree)
+        print(f"input: image tree {IMAGE_TREE[0]} classes x "
+              f"{IMAGE_TREE[1]} JPEGs at {IMAGE_TREE[2]} px written in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        for backend in ("native", "tf"):
+            _, counts[f"input, image_folder, {backend}"] = _input_run(
+                f"--task image_folder --data-backend {backend}",
+                ["--task", "image_folder", "--data-dir", tree,
+                 "--data-backend", backend, "--epochs", "1"],
+                os.path.join(root, f"if_{backend}"), steps=2,
+                loader_fn=lambda cfg: get_loader(cfg, device="cuda"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts, rows
+
+
 def run_slice(card):
     """The main path: serve ViT-B/16 through build_service on the card."""
     import numpy as np
@@ -1115,6 +1387,8 @@ def main() -> int:
     train_counts = run_training(card)
     torch.cuda.empty_cache()
     ckpt_counts, resumed_counts = run_checkpoint(card)
+    torch.cuda.empty_cache()
+    input_counts, input_rows = run_input(card)
 
     main_row = next(r for r in flash_rows
                     if r["shape"] == [64, HEADS, SEQ, 64]
@@ -1139,9 +1413,11 @@ def main() -> int:
     def by_path(i):
         """A kernel's launches on each training path: the checkpoint
         phase's uninterrupted run is this slice's main path."""
-        return {"training": train_counts[i],
-                "checkpoint, uninterrupted": ckpt_counts[i],
-                "checkpoint, relaunch after SIGTERM": resumed_counts[i]}
+        paths = {"training": train_counts[i],
+                 "checkpoint, uninterrupted": ckpt_counts[i],
+                 "checkpoint, relaunch after SIGTERM": resumed_counts[i]}
+        paths.update({name: c[i] for name, c in input_counts.items()})
+        return paths
     for name, line, i in (("segment_norms", 198, 1),
                           ("fused_apply", 215, 2)):
         row = k1_rows[name]
@@ -1167,6 +1443,7 @@ def main() -> int:
         "library_ms": None, "einsum_crop_ms": k2["einsum_crop_ms"],
         "shape": [64, 224, 224, 3],
         "ok": all(r["ok"] for r in k2_rows)})
+    print(json.dumps({"input_arms": input_rows}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -357,6 +357,10 @@ ARGVS = {
                  "--epochs", "2", "--fused-update", "on",
                  "--augment-placement", "step", "--fused-augment", "on",
                  "--model-dir", "/tmp/m"],
+    "data": ["--task", "cifar10", "--data-dir", "/data/c10",
+             "--data-backend", "native", "--aug-spec", "paper",
+             "--valid-fraction", "0.25", "--workers-per-replica", "6",
+             "--num-synth-samples", "100", "--download", "0"],
     "lifecycle": ["--uid", "exp1", "--arch", "resnet18", "--batch-size",
                   "8", "--early-stop", "--fault-at-step", "5",
                   "--no-save-on-signal", "--no-half", "--seed", "7", "--lr",

@@ -1,6 +1,6 @@
 """The port stands alone: no module of byol_tpu_torch/, and not
-chip_smoke.py, imports JAX, flax, optax, orbax, tensorstore or the JAX
-package."""
+chip_smoke.py, imports JAX, flax, optax, orbax, tensorstore, TensorFlow or
+the JAX package."""
 import ast
 from pathlib import Path
 
@@ -10,7 +10,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "byol_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
-             "byol_tpu"}
+             "tensorflow", "byol_tpu"}
 
 
 def _imported_roots(tree):

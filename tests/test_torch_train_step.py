@@ -329,8 +329,8 @@ def test_cli_trains_on_the_cpu(capsys, tmp_path):
     out = capsys.readouterr().out
     epochs = [line for line in out.splitlines() if line.startswith("epoch ")]
     assert len(epochs) == 2 and all("test loss" in e for e in epochs)
-    assert "un-augmented" in out and out.rstrip().splitlines()[-1].startswith(
-        "done: epoch 1")
+    assert ("loader: data_backend='tf' runs the torch host path" in out
+            and out.rstrip().splitlines()[-1].startswith("done: epoch 1"))
 
 
 def test_cli_without_no_cuda_needs_a_card(capsys):
