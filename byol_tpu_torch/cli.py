@@ -53,11 +53,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--projection-size", type=int, default=256)
     p.add_argument("--head-latent-size", type=int, default=4096)
     p.add_argument("--base-decay", type=float, default=0.996)
+    p.add_argument("--ema-scaling-reference-batch", type=int, default=0,
+                   help="scale tau as tau^(batch/this) so target-EMA "
+                        "dynamics stay batch-size invariant (the EMA "
+                        "scaling rule, arXiv 2307.13813); 0 = off")
+    p.add_argument("--weight-initialization", type=str, default=None,
+                   help="draw every Dense/Conv kernel again with this "
+                        "scheme (models/init.py); default: keep flax's")
+    p.add_argument("--polyak-ema", type=float, default=0.0,
+                   help="Polyak average of the params with this decay, "
+                        "used by eval; 0 = off")
     p.add_argument("--model-dir", type=str, default=".models",
                    help="checkpoints go to <model-dir>/<run name>")
     p.add_argument("--weight-decay", type=float, default=1e-6)
     p.add_argument("--lr", type=float, default=0.2)
     p.add_argument("--warmup", type=int, default=10, help="warmup epochs")
+    p.add_argument("--accum-steps", type=int, default=1,
+                   help="gradient accumulation: split each batch into this "
+                        "many strided microbatches, one update per batch; "
+                        "--batch-size stays the effective batch and every "
+                        "count is in optimizer steps.  1 = off")
+    p.add_argument("--accum-bn-mode", type=str, default="average",
+                   choices=("average", "microbatch", "global"),
+                   help="BN statistics under accumulation: 'average' = one "
+                        "tick from the microbatches' mean, 'microbatch' = k "
+                        "sequential ticks, 'global' = exact big-batch "
+                        "semantics (costs the big batch's memory)")
     p.add_argument("--early-stop", action="store_true",
                    help="stop after 10 epochs without a better test loss "
                         "and restore the best checkpoint")
@@ -123,13 +144,18 @@ def config_from_args(args: argparse.Namespace) -> Config:
                           projection_size=args.projection_size,
                           head_latent_size=args.head_latent_size,
                           base_decay=args.base_decay,
+                          ema_scaling_reference_batch=(
+                              args.ema_scaling_reference_batch),
+                          weight_initialization=args.weight_initialization,
                           model_dir=args.model_dir),
         regularizer=RegularizerConfig(
             weight_decay=args.weight_decay,
             color_jitter_strength=args.color_jitter_strength,
-            aug_spec=args.aug_spec),
+            aug_spec=args.aug_spec, polyak_ema=args.polyak_ema),
         optim=OptimConfig(lr=args.lr, warmup=args.warmup,
                           early_stop=args.early_stop,
+                          accum_steps=args.accum_steps,
+                          accum_bn_mode=args.accum_bn_mode,
                           fused_update=args.fused_update),
         device=DeviceConfig(num_replicas=1,
                             workers_per_replica=args.workers_per_replica,

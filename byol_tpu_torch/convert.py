@@ -17,8 +17,9 @@ module, and, given the target's state dict as ``like``, on any key that
 is missing, left over, or of another shape.
 
 :func:`train_state_from_flax` carries a whole JAX ``TrainState`` across
-(params, BN statistics, EMA target, LARS momentum trace, schedule count,
-``step`` and ``ema_step``), given as numpy nested dicts and ints: the
+(params, BN statistics, EMA target, LARS momentum trace, the Polyak
+params when there are any, schedule count, ``step`` and ``ema_step``),
+given as numpy nested dicts and ints: the
 caller unpacks the optax state, so nothing here needs optax.
 """
 from __future__ import annotations
@@ -113,16 +114,21 @@ def train_state_from_flax(state: Mapping[str, Any], *,
 
     ``state`` holds ``params``, ``batch_stats``, ``target_params`` and
     ``momentum`` (the LARS trace tree, which has the params' structure) as
-    nested dicts, and ``count`` (the schedule count), ``step`` and
+    nested dicts, optionally ``polyak_params`` (None or absent: no Polyak
+    average), and ``count`` (the schedule count), ``step`` and
     ``ema_step`` as ints.  Returns ``params``, ``target``, ``momentum``
-    (torch-named parameter dicts, converted like the params), ``buffers``
-    (the running statistics) and the three counters as Python ints.
+    and, with Polyak params, ``polyak`` (torch-named parameter dicts,
+    converted like the params), ``buffers`` (the running statistics) and
+    the three counters as Python ints.
     ``like`` (the online net's state dict) checks every key and shape.
     """
     online = from_flax(state["params"], state.get("batch_stats"), like=like)
     params, buffers = _split_params_and_buffers(online)
     out: Dict[str, Any] = {"params": params, "buffers": buffers}
-    for key, name in (("target_params", "target"), ("momentum", "momentum")):
+    carried = [("target_params", "target"), ("momentum", "momentum")]
+    if state.get("polyak_params") is not None:
+        carried.append(("polyak_params", "polyak"))
+    for key, name in carried:
         tree = from_flax(state[key])
         if set(tree) != set(params):
             raise ValueError(

@@ -175,8 +175,6 @@ def _refuse_unported(cfg: Config) -> None:
         raise _not_ported("--zero1 on", "section 1 item 10")
     if cfg.device.flat_resident == "on":
         raise _not_ported("--flat-resident on", "section 1 item 10")
-    if cfg.optim.accum_steps > 1:
-        raise _not_ported("--accum-steps > 1", "section 1 item 6")
     if cfg.device.model_parallel > 1 or cfg.device.sequence_parallel > 1:
         raise _not_ported("--model-parallel / --sequence-parallel > 1",
                           "section 1 items 10 and 14")

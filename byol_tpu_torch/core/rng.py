@@ -31,10 +31,13 @@ def split_named(seed: int, names: Sequence[str],
         stream_seed(seed, name)) for name in names}
 
 
-def augment_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of the in-step augmentation draws of optimizer
-    step ``step``, microbatch 0 (counterpart of ``augment_keys(seed, step,
-    1)[0]`` in byol_tpu/training/steps.py).  It depends only on (seed,
-    step), never on how many steps this process ran."""
+def augment_generator(seed: int, step: int,
+                      microbatch: int = 0) -> torch.Generator:
+    """The CPU generator of the in-step augmentation draws of microbatch
+    ``microbatch`` of optimizer step ``step`` (counterpart of
+    ``augment_keys(seed, step, k)[microbatch]`` in
+    byol_tpu/training/steps.py).  It depends only on (seed, step,
+    microbatch), never on how many steps this process ran, nor on how many
+    microbatches the step has."""
     return torch.Generator().manual_seed(
-        stream_seed(seed, f"augment/{int(step)}/0"))
+        stream_seed(seed, f"augment/{int(step)}/{int(microbatch)}"))

@@ -99,10 +99,12 @@ def view_params(gen: torch.Generator, b: int, h: int, w: int,
 
 
 def step_views(seed: int, step: int, b: int, h: int, w: int,
-               strength: float = 1.0) -> Tuple[ViewParams, ViewParams]:
-    """Both views' draws of optimizer step ``step``, on the CPU: a function
-    of (seed, step) alone (``core/rng.py::augment_generator``)."""
-    gen = rng_lib.augment_generator(seed, step)
+               strength: float = 1.0, microbatch: int = 0
+               ) -> Tuple[ViewParams, ViewParams]:
+    """Both views' draws of microbatch ``microbatch`` (``b`` images) of
+    optimizer step ``step``, on the CPU: a function of (seed, step,
+    microbatch) alone (``core/rng.py::augment_generator``)."""
+    gen = rng_lib.augment_generator(seed, step, microbatch)
     return (view_params(gen, b, h, w, strength),
             view_params(gen, b, h, w, strength))
 

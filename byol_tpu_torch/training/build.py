@@ -10,6 +10,7 @@ from byol_tpu_torch.core.config import ResolvedConfig
 from byol_tpu_torch.core.precision import get_policy
 from byol_tpu_torch.core.rng import split_named
 from byol_tpu_torch.models.byol_net import BYOLNet, build_byol_net
+from byol_tpu_torch.models.init import apply_weight_init
 from byol_tpu_torch.models.registry import get_spec
 from byol_tpu_torch.optim.factory import build_optimizer
 from byol_tpu_torch.training.state import TrainState, create_train_state
@@ -67,16 +68,24 @@ def build_tx(rcfg: ResolvedConfig):
 def step_config(rcfg: ResolvedConfig) -> StepConfig:
     cfg = rcfg.cfg
     base_decay = cfg.model.base_decay
+    polyak = cfg.regularizer.polyak_ema
     ref_b = cfg.model.ema_scaling_reference_batch
     if ref_b > 0:
-        # EMA scaling rule (arXiv 2307.13813): tau -> tau^kappa
-        base_decay = float(base_decay ** (rcfg.global_batch_size / ref_b))
+        # EMA scaling rule (arXiv 2307.13813): tau -> tau^kappa, for every
+        # model EMA: the target's decay and the Polyak average's
+        kappa = rcfg.global_batch_size / ref_b
+        base_decay = float(base_decay ** kappa)
+        if polyak > 0.0:
+            polyak = float(polyak ** kappa)
     return StepConfig(
         total_train_steps=rcfg.total_train_steps,
         base_decay=base_decay,
         norm_mode=cfg.parity.loss_norm_mode,
         fuse_views=cfg.model.fuse_views,
+        polyak_ema=polyak,
         ema_update_mode=cfg.parity.ema_update_mode,
+        accum_steps=cfg.optim.accum_steps,
+        accum_bn_mode=cfg.optim.accum_bn_mode,
         normalize_inputs=cfg.parity.normalize_inputs,
         fused_update=cfg.optim.fused_update == "on",
         augment_in_step=cfg.task.augment_placement == "step",
@@ -91,14 +100,17 @@ def setup_training(rcfg: ResolvedConfig, device,
                    ) -> Tuple[BYOLNet, TrainState, Callable, Callable,
                               Callable[[int], float]]:
     """Returns (net, state, train_step, eval_step, lr_schedule): the net
-    built on ``device`` and flattened into the train state."""
+    built on ``device``, its kernels drawn again under
+    ``--weight-initialization`` (from the ``weight_init`` stream of
+    ``cfg.device.seed``), and flattened into the train state."""
     cfg = rcfg.cfg
-    if cfg.model.weight_initialization:
-        raise NotImplementedError(
-            "--weight-initialization is not ported to byol_tpu_torch yet "
-            "(ROADMAP.md, section 1 item 6)")
     policy = get_policy(cfg.device.half)
-    net = build_net(rcfg, generator).to(device)
+    net = build_net(rcfg, generator)
+    if cfg.model.weight_initialization:
+        apply_weight_init(
+            net, split_named(cfg.device.seed, ("weight_init",))["weight_init"],
+            cfg.model.weight_initialization)
+    net = net.to(device)
     state = create_train_state(net, ema_init_mode=cfg.parity.ema_init_mode,
                                polyak_ema=cfg.regularizer.polyak_ema)
     tx, schedule = build_tx(rcfg)

@@ -1,7 +1,8 @@
 """Train state (counterpart of byol_tpu/training/state.py).
 
 The online parameters, their gradients, the LARS momentum and the EMA
-target live as four flat fp32 buffers in the fused update's
+target (and, under ``polyak_ema``, the Polyak average) live as flat fp32
+buffers in the fused update's
 :class:`~byol_tpu_torch.ops.fused_update.SegmentMap` layout: one segment
 per parameter leaf, in the JAX tree's order (module paths sorted
 component by component, as ``jax.tree_util`` orders dict keys), each padded
@@ -15,7 +16,8 @@ into the target buffer.  It holds no running statistics of its own: its
 BatchNorms share the online ones' buffers and never update them.  In
 train mode they normalise with batch statistics (the JAX step's target
 forward, ``update_stats=False``); in eval mode they read the online
-running statistics.
+running statistics.  The Polyak net (``polyak_net``, eval only) is built
+the same way over the Polyak buffer.
 
 As in the JAX state:
 
@@ -62,6 +64,8 @@ class TrainState:
     count: int = 0                 # lr schedule count
     step: int = 0                  # global optimizer step
     ema_step: int = 0              # tau schedule counter
+    polyak: Optional[torch.Tensor] = None      # under polyak_ema > 0
+    polyak_net: Optional[nn.Module] = None     # parameters: views of polyak
 
     def leaves(self, buf: torch.Tensor) -> List[torch.Tensor]:
         """Views of ``buf`` in the parameters' shapes, in segment order."""
@@ -93,18 +97,30 @@ def _bind(module: nn.Module, names: Sequence[str], shapes, buf: torch.Tensor,
             params[name].grad = grad
 
 
+def _shadow_net(net: nn.Module, names: Sequence[str], shapes,
+                buf: torch.Tensor, seg: SegmentMap) -> nn.Module:
+    """A copy of ``net`` whose parameters are views of ``buf`` and whose
+    BatchNorms share ``net``'s running statistics, never updating them."""
+    shadow = copy.deepcopy(net)
+    _bind(shadow, names, shapes, buf, seg)
+    shadow.requires_grad_(False)
+    for name, mod in shadow.named_modules():
+        if isinstance(mod, BatchNorm):
+            online = net.get_submodule(name)
+            mod.running_mean = online.running_mean
+            mod.running_var = online.running_var
+            mod.update_stats = False
+    return shadow
+
+
 @torch.no_grad()
 def create_train_state(net: nn.Module, *, ema_init_mode: str = "copy",
                        polyak_ema: float = 0.0) -> TrainState:
-    """Flatten ``net`` (already on its device) into the four buffers and
-    build its target network."""
-    if polyak_ema > 0.0:
-        raise NotImplementedError(
-            "--polyak-ema > 0 is not ported to byol_tpu_torch yet "
-            "(ROADMAP.md, section 1 item 6)")
+    """Flatten ``net`` (already on its device) into the flat buffers and
+    build its target network (and, under ``polyak_ema > 0``, its Polyak
+    net, starting as a copy of the params)."""
     if ema_init_mode not in ("copy", "reference"):
         raise ValueError(f"unknown ema_init_mode {ema_init_mode!r}")
-    target_net = copy.deepcopy(net)
     params = dict(net.named_parameters())
     names = tree_order(params)
     leaves = [params[n].detach() for n in names]
@@ -114,19 +130,26 @@ def create_train_state(net: nn.Module, *, ema_init_mode: str = "copy",
     g_buf = torch.zeros_like(p_buf)
     m_buf = torch.zeros_like(p_buf)
     t_buf = p_buf.clone() if ema_init_mode == "copy" else 0.004 * p_buf
+    polyak = p_buf.clone() if polyak_ema > 0.0 else None
+    # the shadows copy the net before its parameters become views
+    target_net = _shadow_net(net, names, shapes, t_buf, seg)
+    polyak_net = (None if polyak is None
+                  else _shadow_net(net, names, shapes, polyak, seg))
     _bind(net, names, shapes, p_buf, seg, g_buf)
-    _bind(target_net, names, shapes, t_buf, seg)
-    target_net.requires_grad_(False)
-    for name, mod in target_net.named_modules():
-        if isinstance(mod, BatchNorm):
-            online = net.get_submodule(name)
-            mod.running_mean = online.running_mean
-            mod.running_var = online.running_var
-            mod.update_stats = False
     return TrainState(net=net, target_net=target_net, seg=seg, names=names,
                       shapes=shapes, params=p_buf, grads=g_buf,
                       momentum=m_buf, target=t_buf,
-                      ema_step=0 if ema_init_mode == "copy" else 1)
+                      ema_step=0 if ema_init_mode == "copy" else 1,
+                      polyak=polyak, polyak_net=polyak_net)
+
+
+def _buffers(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
+    """The named flat buffers a checkpoint carries, Polyak's when on."""
+    out = [("params", state.params), ("target", state.target),
+           ("momentum", state.momentum)]
+    if state.polyak is not None:
+        out.append(("polyak", state.polyak))
+    return out
 
 
 @torch.no_grad()
@@ -135,8 +158,13 @@ def _load(state: TrainState, trees: Mapping[str, Mapping[str, Any]],
           what: str) -> None:
     """Copy named trees into the state's views and buffers, in place: the
     parameters stay views of the flat buffers the update kernels write."""
-    for key, buf in (("params", state.params), ("target", state.target),
-                     ("momentum", state.momentum)):
+    if "polyak" in trees and state.polyak is None:
+        raise ValueError(f"{what}: the tree carries polyak, and this state "
+                         "has no Polyak average (polyak_ema is 0)")
+    for key, buf in _buffers(state):
+        if key not in trees:
+            raise ValueError(f"{what}: the tree has no {key!r}, which this "
+                             "state needs")
         tree = state.tree(buf)
         if set(trees[key]) != set(tree):
             raise ValueError(f"{what}: {key} names differ at "
@@ -166,7 +194,9 @@ def load_converted(state: TrainState, converted: Mapping[str, Any]) -> None:
           "load_converted")
 
 
-# the version of canonical_state's tree; load_canonical refuses any other
+# the version of canonical_state's tree; load_canonical refuses any other.
+# ``polyak`` is in it only when the state has one, so a tree written
+# before Polyak was ported is the same format
 CANONICAL_FORMAT = 1
 
 
@@ -174,18 +204,17 @@ CANONICAL_FORMAT = 1
 def canonical_state(state: TrainState) -> Dict[str, Any]:
     """The train state as a host tree that does not depend on the flat
     layout (as the JAX checkpoint does not depend on the mesh): ``params``,
-    ``target`` and ``momentum`` keyed by parameter name, each in its own
-    shape; ``batch_stats``; the counters ``step``, ``count`` and
-    ``ema_step``; and ``format``.  Gradients are not state: the step
-    zeroes them.
+    ``target``, ``momentum`` and, under ``polyak_ema``, ``polyak`` keyed by
+    parameter name, each in its own shape; ``batch_stats``; the counters
+    ``step``, ``count`` and ``ema_step``; and ``format``.  Gradients are
+    not state: the step zeroes them.
 
     Every tensor is a CPU copy, complete when this returns: the update
     kernels write the flat buffers in place, so a later step cannot tear
     the tree while it is written."""
     out: Dict[str, Any] = {"format": CANONICAL_FORMAT, "step": state.step,
                            "count": state.count, "ema_step": state.ema_step}
-    for key, buf in (("params", state.params), ("target", state.target),
-                     ("momentum", state.momentum)):
+    for key, buf in _buffers(state):
         # one copy of the whole buffer, then views in the leaves' shapes
         out[key] = state.tree(buf.to("cpu", copy=True))
     out["batch_stats"] = {name: buf.to("cpu", copy=True)
@@ -194,7 +223,8 @@ def canonical_state(state: TrainState) -> Dict[str, Any]:
 
 
 def load_canonical(state: TrainState, tree: Mapping[str, Any]) -> None:
-    """Copy a :func:`canonical_state` tree into ``state``, in place."""
+    """Copy a :func:`canonical_state` tree into ``state``, in place.  The
+    tree carries ``polyak`` exactly when the state has a Polyak average."""
     if tree.get("format") != CANONICAL_FORMAT:
         raise ValueError(f"load_canonical: tree format "
                          f"{tree.get('format')!r}, this code reads "

@@ -1,11 +1,10 @@
-"""BYOL train and eval steps (counterpart of byol_tpu/training/steps.py),
-for ``accum_steps == 1``.
+"""BYOL train and eval steps (counterpart of byol_tpu/training/steps.py).
 
 One train step, as the JAX step computes it:
 
 0. under ``augment_in_step`` the batch is raw uint8 images, and both views
    are made here on the device from draws that depend only on (aug_seed,
-   step): through kernel K2 (ops/fused_augment.py) under
+   step, microbatch): through kernel K2 (ops/fused_augment.py) under
    ``fused_augment``, else through the unfused chain
    (data/device_augment.py);
 1. both views are cast to the compute dtype (and standardised under
@@ -23,7 +22,27 @@ One train step, as the JAX step computes it:
    over the flat buffers; without it, the unfused chain
    (optim/lars.py) and the EMA tick in plain torch ops.  The EMA averages
    the post-update params, or the pre-update ones under
-   ``ema_update_mode='reference_pre'``.
+   ``ema_update_mode='reference_pre'``.  Under ``polyak_ema`` a Polyak
+   average of the post-update params ticks after it, a plain torch op on
+   its flat buffer.
+
+Gradient accumulation (``accum_steps`` k > 1) splits the batch into k
+STRIDED microbatches (microbatch i takes rows i, i+k, ...) and runs steps
+0-5 once per microbatch: each backward adds its microbatch's gradients to
+the flat buffer, which is zeroed once per optimizer step and divided by k
+after the last microbatch, and each microbatch's graph and views are
+freed before the next one's forward.  Metrics are the mean over the
+microbatches.  Then ONE update (step 6): the counters, the lr schedule and
+tau see optimizer steps.  ``accum_bn_mode`` sets the BatchNorm running
+statistics:
+
+- ``average``: every microbatch starts from the step's input statistics;
+  the statistics written are the mean of the k ticked results;
+- ``microbatch``: the statistics tick k times in sequence;
+- ``global``: exact big-batch semantics.  The JAX step syncs every
+  BatchNorm over the vmapped microbatches; here the k microbatches,
+  concatenated in microbatch order (views made per microbatch), run as
+  ONE batch.  It costs the big batch's memory, as in JAX.
 
 lr and tau are computed on the host from the schedule count and
 ``ema_step``, the augmentation draws on the host's generator; the step
@@ -33,7 +52,7 @@ metrics as device scalars.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -49,8 +68,8 @@ from byol_tpu_torch.training.linear_eval import normalize_images
 from byol_tpu_torch.training.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
-# (step, batch, height, width) -> both views' draws, on the CPU
-DrawViews = Callable[[int, int, int, int],
+# (step, batch, height, width, microbatch) -> both views' draws, on the CPU
+DrawViews = Callable[[int, int, int, int, int],
                      Tuple[device_augment.ViewParams,
                            device_augment.ViewParams]]
 
@@ -61,7 +80,10 @@ class StepConfig:
     base_decay: float = 0.996
     norm_mode: str = "paper"               # Quirk Q2
     fuse_views: bool = False
+    polyak_ema: float = 0.0                # Polyak decay; 0 = off
     ema_update_mode: str = "post"          # 'post' | 'reference_pre'
+    accum_steps: int = 1                   # microbatches per optimizer step
+    accum_bn_mode: str = "average"         # 'average'|'microbatch'|'global'
     normalize_inputs: bool = False         # Quirk Q3
     fused_update: bool = False             # K1a + K1b instead of the chain
     augment_in_step: bool = False          # batch = raw uint8 images
@@ -88,6 +110,15 @@ def _forward_views(net, aug1: torch.Tensor, aug2: torch.Tensor, fuse: bool):
     return net(aug1), net(aug2)
 
 
+def microbatch_split(x: torch.Tensor, k: int) -> List[torch.Tensor]:
+    """``(B, ...)`` -> k strided views: microbatch i takes rows i, i+k, ...
+    (the JAX step's ``_microbatch_split``)."""
+    b = x.shape[0]
+    if b % k:
+        raise ValueError(f"batch {b} not divisible by accum_steps {k}")
+    return [x[i::k] for i in range(k)]
+
+
 def make_train_step(tx: LarsMomentum, scfg: StepConfig,
                     lr_schedule: Callable[[int], float],
                     policy: Policy = FP32,
@@ -97,37 +128,131 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
 
     ``batch`` = {'view1', 'view2': (B, H, W, C) float [0, 1], 'label':
     (B,) int} on the state's device, or under ``augment_in_step``
-    {'images': (B, H, W, C) uint8, 'label'}.  ``draw_views`` gives the
-    step's draws (default: ``device_augment.step_views`` of ``aug_seed``);
-    tests pass draws made elsewhere through it."""
+    {'images': (B, H, W, C) uint8, 'label'}.  ``draw_views`` gives each
+    microbatch's draws (default: ``device_augment.step_views`` of
+    ``aug_seed``); tests pass draws made elsewhere through it."""
     if scfg.ema_update_mode not in ("post", "reference_pre"):
         raise ValueError(
             f"unknown ema_update_mode {scfg.ema_update_mode!r}")
+    if scfg.accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {scfg.accum_steps}")
+    if scfg.accum_bn_mode not in ("average", "microbatch", "global"):
+        raise ValueError(f"unknown accum_bn_mode {scfg.accum_bn_mode!r}")
     if scfg.augment_in_step and scfg.image_size <= 0:
         raise ValueError(
             "augment_in_step requires image_size > 0 (the augment target "
             f"size), got {scfg.image_size}")
-    if scfg.fused_augment and not scfg.augment_in_step:
-        raise ValueError(
-            "fused_augment=True requires augment_in_step=True: the "
-            "kernel fuses the IN-STEP augmentation path (raw uint8 "
-            "batches); loader placement has no in-step chain to fuse")
+    if scfg.fused_augment:
+        if not scfg.augment_in_step:
+            raise ValueError(
+                "fused_augment=True requires augment_in_step=True: the "
+                "kernel fuses the IN-STEP augmentation path (raw uint8 "
+                "batches); loader placement has no in-step chain to fuse")
+        if scfg.accum_bn_mode == "global" and scfg.accum_steps > 1:
+            raise ValueError(
+                "fused_augment=True with accum_bn_mode='global': the JAX "
+                "oracle cannot run the kernel under its microbatch vmap, "
+                "and the port keeps its refusal — use 'average' or "
+                "'microbatch'")
     if draw_views is None:
-        def draw_views(step, b, h, w):
+        def draw_views(step, b, h, w, microbatch):
             return device_augment.step_views(scfg.aug_seed, step, b, h, w,
-                                             scfg.color_jitter_strength)
+                                             scfg.color_jitter_strength,
+                                             microbatch)
     ema_pre = scfg.ema_update_mode == "reference_pre"
     layout = None                   # the kernels' device-side segment map
 
-    def augment(state: TrainState, images: torch.Tensor):
-        """Both views of the raw batch, made on its device."""
+    def two_views(state: TrainState, part: Mapping[str, torch.Tensor],
+                  microbatch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both views of one microbatch: made here on its device from its
+        raw images and its draws, or the batch's own under loader
+        placement."""
+        if "images" not in part:
+            return part["view1"], part["view2"]
+        # a strided microbatch is not contiguous; K2 reads a dense batch
+        images = part["images"].contiguous()
         b, h, w = images.shape[:3]
-        views = device_augment.to_device(draw_views(state.step, b, h, w),
-                                         images.device)
+        views = device_augment.to_device(
+            draw_views(state.step, b, h, w, microbatch), images.device)
         two_view = (fused_aug_lib.fused_two_view if scfg.fused_augment
                     else device_augment.two_view)
         return two_view(images, scfg.image_size, views,
                         strength=scfg.color_jitter_strength)
+
+    def forward_backward(state: TrainState, part: Mapping[str, torch.Tensor],
+                         microbatch: int, chunks: int = 1) -> Metrics:
+        """Forward and backward of one microbatch (the whole batch when
+        k = 1): its gradients are ADDED to ``state.grads``; returns its
+        metrics, detached.  Its views and graph die with this call.
+        ``chunks`` > 1 ('global'): the batch is that many microbatches in
+        order, and the BYOL loss is their mean, as in JAX, where each
+        microbatch's loss sees its own rows (the reference loss's norms
+        span the rows it is given)."""
+        aug1, aug2 = _views(*two_views(state, part, microbatch), policy,
+                            scfg.normalize_inputs)
+        with torch.no_grad():
+            state.target_net.train()
+            tgt1, tgt2 = _forward_views(state.target_net, aug1, aug2,
+                                        scfg.fuse_views)
+        net = state.net
+        net.train()
+        on1, on2 = _forward_views(net, aug1, aug2, scfg.fuse_views)
+        byol_loss = torch.stack([
+            loss_function(*rows, norm_mode=scfg.norm_mode) for rows in zip(
+                *(t.chunk(chunks) for t in (on1["prediction"],
+                                            on2["prediction"],
+                                            tgt1["projection"],
+                                            tgt2["projection"])))]).mean()
+        logits = net.classify(torch.cat([on1["representation"],
+                                         on2["representation"]]))
+        cls_labels = torch.cat([part["label"], part["label"]])
+        cls_loss = cross_entropy(logits, cls_labels)
+        total = byol_loss + cls_loss
+        total.backward()
+        with torch.no_grad():
+            top1, top5 = topk_accuracy(logits, cls_labels)
+        return {"loss_mean": total.detach(),
+                "byol_loss_mean": byol_loss.detach(),
+                "linear_loss_mean": cls_loss.detach(),
+                "top1_mean": top1, "top5_mean": top5}
+
+    def accumulate(state: TrainState, batch: Mapping[str, torch.Tensor]
+                   ) -> Metrics:
+        """'average' / 'microbatch': one forward and backward per strided
+        microbatch; the mean gradient is left in ``state.grads``."""
+        k = scfg.accum_steps
+        average = scfg.accum_bn_mode == "average"
+        stats = list(state.batch_stats().values())
+        if average:
+            start = [s.clone() for s in stats]
+            ticked = [torch.zeros_like(s) for s in stats]
+        parts = {name: microbatch_split(v, k) for name, v in batch.items()}
+        sums: Metrics = {}
+        for i in range(k):
+            if average and i:
+                torch._foreach_copy_(stats, start)
+            m = forward_backward(state, {name: v[i] for name, v in
+                                         parts.items()}, i)
+            sums = m if i == 0 else {n: sums[n] + v for n, v in m.items()}
+            if average:
+                torch._foreach_add_(ticked, stats)
+        if average:
+            torch._foreach_div_(ticked, k)
+            torch._foreach_copy_(stats, ticked)
+        state.grads.div_(k)
+        return {n: v / k for n, v in sums.items()}
+
+    def big_batch(state: TrainState, batch: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """'global': the k microbatches concatenated in microbatch order,
+        each one's views made from its own draws."""
+        k = scfg.accum_steps
+        parts = {name: microbatch_split(v, k) for name, v in batch.items()}
+        views = [two_views(state, {name: v[i] for name, v in parts.items()},
+                           i) for i in range(k)]
+        return {"view1": torch.cat([v[0] for v in views]),
+                "view2": torch.cat([v[1] for v in views]),
+                "label": torch.cat(parts["label"])}
 
     def update(state: TrainState, lr: float, tau: float) -> torch.Tensor:
         nonlocal layout
@@ -151,42 +276,29 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
         return trust
 
     def train_step(state: TrainState, batch) -> Metrics:
-        labels = batch["label"]
-        if scfg.augment_in_step:
-            view1, view2 = augment(state, batch["images"])
-        else:
-            view1, view2 = batch["view1"], batch["view2"]
-        aug1, aug2 = _views(view1, view2, policy, scfg.normalize_inputs)
-        with torch.no_grad():
-            state.target_net.train()
-            tgt1, tgt2 = _forward_views(state.target_net, aug1, aug2,
-                                        scfg.fuse_views)
-        net = state.net
-        net.train()
+        if scfg.polyak_ema > 0.0 and state.polyak is None:
+            raise ValueError("polyak_ema > 0 needs a train state made with "
+                             "polyak_ema > 0 (it has no Polyak buffer)")
         state.grads.zero_()
-        on1, on2 = _forward_views(net, aug1, aug2, scfg.fuse_views)
-        byol_loss = loss_function(on1["prediction"], on2["prediction"],
-                                  tgt1["projection"], tgt2["projection"],
-                                  norm_mode=scfg.norm_mode)
-        logits = net.classify(torch.cat([on1["representation"],
-                                         on2["representation"]]))
-        cls_labels = torch.cat([labels, labels])
-        cls_loss = cross_entropy(logits, cls_labels)
-        total = byol_loss + cls_loss
-        total.backward()
+        if scfg.accum_steps == 1:
+            metrics = forward_backward(state, batch, 0)
+        elif scfg.accum_bn_mode == "global":
+            metrics = forward_backward(state, big_batch(state, batch), 0,
+                                       chunks=scfg.accum_steps)
+        else:
+            metrics = accumulate(state, batch)
         with torch.no_grad():
-            top1, top5 = topk_accuracy(logits, cls_labels)
             lr = lr_schedule(state.count)
             tau = cosine_ema_decay(state.ema_step, scfg.total_train_steps,
                                    scfg.base_decay)
             update(state, lr, tau)
+            if scfg.polyak_ema > 0.0:
+                d = scfg.polyak_ema
+                state.polyak.mul_(d).add_(state.params, alpha=1.0 - d)
         state.count += 1
         state.step += 1
         state.ema_step += 1
-        return {"loss_mean": total.detach(),
-                "byol_loss_mean": byol_loss.detach(),
-                "linear_loss_mean": cls_loss.detach(),
-                "top1_mean": top1, "top5_mean": top5}
+        return metrics
 
     return train_step
 
@@ -195,8 +307,10 @@ def make_eval_step(scfg: StepConfig, policy: Policy = FP32
                    ) -> Callable[[TrainState, Metrics], Metrics]:
     """Eval: the full BYOL loss, the probe on view-1 representations with
     un-doubled labels, BatchNorm on the running statistics, nothing
-    updated.  An optional ``mask`` (B,) restricts every metric to the valid
-    rows of a padded batch; ``_weight`` is the number of those rows."""
+    updated; the online forward and the probe use the Polyak params when
+    ``polyak_ema`` is on.  An optional ``mask`` (B,) restricts every metric
+    to the valid rows of a padded batch; ``_weight`` is the number of those
+    rows."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch) -> Metrics:
@@ -204,15 +318,22 @@ def make_eval_step(scfg: StepConfig, policy: Policy = FP32
                             scfg.normalize_inputs)
         labels = batch["label"]
         mask = batch.get("mask")
-        state.net.eval()
+        online = state.net
+        if scfg.polyak_ema > 0.0:
+            if state.polyak_net is None:
+                raise ValueError("polyak_ema > 0 needs a train state made "
+                                 "with polyak_ema > 0 (it has no Polyak "
+                                 "net)")
+            online = state.polyak_net
+        online.eval()
         state.target_net.eval()
-        on1, on2 = _forward_views(state.net, aug1, aug2, scfg.fuse_views)
+        on1, on2 = _forward_views(online, aug1, aug2, scfg.fuse_views)
         tgt1, tgt2 = _forward_views(state.target_net, aug1, aug2,
                                     scfg.fuse_views)
         byol_loss = loss_function(on1["prediction"], on2["prediction"],
                                   tgt1["projection"], tgt2["projection"],
                                   norm_mode=scfg.norm_mode, mask=mask)
-        logits = state.net.classify(on1["representation"])
+        logits = online.classify(on1["representation"])
         cls_loss = cross_entropy(logits, labels, mask=mask)
         top1, top5 = topk_accuracy(logits, labels, mask=mask)
         weight = (mask.sum() if mask is not None

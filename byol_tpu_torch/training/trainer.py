@@ -8,8 +8,9 @@ to what one device needs:
   ``data_backend='device'``) and copies it while step N runs; the first
   batch of a run is held to the input contract (``_range_check``);
 - one eval pass per epoch on the test split, and on the valid split when
-  the loader has one, every batch padded to the train batch with a
-  validity mask (one shape, pad rows out of every metric);
+  the loader has one, a microbatch (the train batch when ``accum_steps``
+  is 1) at a time, each padded to that size with a validity mask (one
+  shape, pad rows out of every metric);
 - one line per epoch: loss, BYOL and linear-probe losses, top-1/5, wall
   ms per step and images per second, then the same metrics on the test
   set; then the input pipeline's line (``input[Epoch N]``: H2D MiB per
@@ -183,13 +184,26 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
               f"leaves, {sum(state.seg.sizes) / 1e6:.2f}M params, "
               f"fused_update={cfg.optim.fused_update}, "
               f"half={cfg.device.half}, on {device}", flush=True)
+        if rcfg.accum_steps > 1:
+            # every count above the step (state.step, steps per epoch, the
+            # lr schedule's count, tau, images/s) is in optimizer steps
+            print(f"grad accumulation: {rcfg.accum_steps} microbatches of "
+                  f"{rcfg.microbatch_size} (global) per optimizer step, "
+                  f"bn_mode={cfg.optim.accum_bn_mode}, effective batch "
+                  f"{rcfg.global_batch_size}", flush=True)
     batch_size = rcfg.global_batch_size
+    # eval runs a microbatch at a time, each padded to one shape: the same
+    # row-weighted means as one padded batch, with the train step's memory
+    eval_rows = rcfg.microbatch_size
 
     def run_eval(batches=None) -> Dict[str, float]:
         sums = _Sums()
         for batch in batches if batches is not None else loader.test_loader:
-            sums.update(eval_step(state, _to_device(
-                pad_batch(batch, batch_size), device)))
+            for start in range(0, len(batch["label"]), eval_rows):
+                rows = {k: v[start:start + eval_rows]
+                        for k, v in batch.items()}
+                sums.update(eval_step(state, _to_device(
+                    pad_batch(rows, eval_rows), device)))
             if cfg.device.debug_step:
                 break
         return sums.result()

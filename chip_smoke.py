@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive byol_tpu_torch's serving, training and input paths once on one
-CUDA card, and check them.
+"""Drive byol_tpu_torch's serving, training, input and accumulation paths
+once on one CUDA card, and check them.
 
     python3 chip_smoke.py            # from the repository root; one card
 
@@ -92,9 +92,25 @@ Phases (any failure raises, and the script exits nonzero):
    on a tree of 2 classes x 64 JPEGs at 256 px written with PIL (2 steps
    under ``native``, which moves to ``tf`` where the library has no
    libjpeg, and 2 under ``tf``), the tree removed after;
-8. prints the ``{"input_arms": ...}`` and ``{"kernels": [...]}`` lines
-   (launches on the checkpoint phase's uninterrupted run, and per path),
-   then, last, the ``{"ok": true, "device": ...}`` line.
+8. accum — the recipe's batch through gradient accumulation: ``--task
+   fake --arch resnet50 --image-size-override 224 --batch-size 4096
+   --accum-steps k --accum-bn-mode average --augment-placement step
+   --fused-augment on --fused-update on --polyak-ema 0.99 --epochs 1``
+   over 8192 fake images (2 optimizer steps; eval on the Polyak params),
+   through the CLI's config and the trainer, counters set to 0 before and
+   read after: every loss finite, K1a = K1b = 1 and K2 = k launches per
+   optimizer step.  k = 16 (microbatch 256), or 32 if one k = 1 step of
+   256 peaks above 75 GB.  Then the peak memory of a k-step on the batch
+   of 4096 against a k = 1 step on one microbatch (at most that plus the
+   rest of the uint8 batch and 1 GiB), wall ms per optimizer step over 2
+   steps, images/s, device-busy ms of 1 profiled step; and at effective
+   256 = 4 x 64 on one set of views: ``global`` against one k = 1 step in
+   loss (bf16 3e-2), ``average`` against ``microbatch`` in the mean
+   gradient (rtol 1e-5, cuDNN deterministic);
+9. prints the ``{"input_arms": ...}``, ``{"accum": ...}`` and
+   ``{"kernels": [...]}`` lines (launches on the accum run, the slice's
+   main path, and per path), then, last, the ``{"ok": true, "device":
+   ...}`` line.
 """
 import json
 import math
@@ -654,9 +670,9 @@ def run_training(card):
     scfg = step_config(rcfg)
     drawn = []
 
-    def recording_draws(step, b, h, w):
+    def recording_draws(step, b, h, w, microbatch):
         drawn.append(da.step_views(scfg.aug_seed, step, b, h, w,
-                                   scfg.color_jitter_strength))
+                                   scfg.color_jitter_strength, microbatch))
         return drawn[-1]
     policy = get_policy(cfg.device.half)
     train_step = make_train_step(tx, scfg, schedule, policy,
@@ -1262,6 +1278,228 @@ def run_input(card):
     return counts, rows
 
 
+ACCUM_ARGV = ["--task", "fake", "--arch", "resnet50",
+              "--image-size-override", "224", "--batch-size", "4096",
+              "--accum-bn-mode", "average", "--augment-placement", "step",
+              "--fused-augment", "on", "--fused-update", "on",
+              "--polyak-ema", "0.99", "--epochs", "1"]
+ACCUM_BATCH = 4096                 # the recipe's batch
+ACCUM_SAMPLES = 8192               # fake images: 2 optimizer steps
+ACCUM_MICRO = (256, 128)           # microbatch, and the fallback over 75 GB
+ACCUM_MEMORY_LIMIT = 75e9          # bytes a step may peak at on the card
+ACCUM_SLACK = 2**30                # peak of k steps over one: + the batch
+ACCUM_CHECK = (256, 4)             # effective batch, microbatches
+
+
+def _peak_bytes(fn):
+    """max_memory_allocated over one call of ``fn``."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def _accum_checks(state, make_step, scfg, images, labels, card):
+    """At effective 256 = 4 x 64 on one set of views (loader placement,
+    made by K2 from the batch's first 256 images): 'global' against one
+    k = 1 step in loss (bf16 3e-2), and 'average' against 'microbatch' in
+    the mean gradient (rtol 1e-5, cuDNN deterministic); the state is
+    restored from one snapshot before each step."""
+    import dataclasses
+
+    import torch
+    from byol_tpu_torch.data import device_augment as da
+    from byol_tpu_torch.ops import fused_augment as fg
+    from byol_tpu_torch.training.state import canonical_state, load_canonical
+    rows, k = ACCUM_CHECK
+    x = images[:rows].contiguous()
+    views = da.to_device(da.step_views(scfg.aug_seed, state.step, rows,
+                                       x.shape[1], x.shape[2],
+                                       scfg.color_jitter_strength), "cuda")
+    v1, v2 = fg.fused_two_view(x, scfg.image_size, views,
+                               strength=scfg.color_jitter_strength)
+    batch = {"view1": v1, "view2": v2, "label": labels[:rows]}
+    on_views = dataclasses.replace(scfg, augment_in_step=False,
+                                   fused_augment=False)
+    snapshot = canonical_state(state)
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, steps, mode in (("k=1", 1, "average"),
+                                  ("global", k, "global"),
+                                  ("average", k, "average"),
+                                  ("microbatch", k, "microbatch")):
+            step = make_step(dataclasses.replace(
+                on_views, accum_steps=steps, accum_bn_mode=mode))
+            loss = float(step(state, batch)["loss_mean"])
+            out[name] = (loss, state.grads.clone())
+            load_canonical(state, snapshot)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    global_ok = math.isclose(out["global"][0], out["k=1"][0],
+                             rel_tol=SLICE_TOL, abs_tol=SLICE_TOL)
+    ga, gm = out["average"][1], out["microbatch"][1]
+    grad_err = (ga - gm).abs().max().item()
+    grad_ok = torch.allclose(gm, ga, rtol=1e-5,
+                             atol=1e-7 * ga.abs().max().item())
+    print(f"accum: effective {rows} = {k} x {rows // k}, the same views: "
+          f"loss k=1 {out['k=1'][0]:.6f}, global {out['global'][0]:.6f} "
+          f"(bf16 tol {SLICE_TOL}: {global_ok}); average {out['average'][0]:.6f}"
+          f", microbatch {out['microbatch'][0]:.6f}; their mean gradients: "
+          f"max abs diff {grad_err:.3e}, bitwise {torch.equal(ga, gm)}, "
+          f"rtol 1e-5: {grad_ok} [{card}]", flush=True)
+    if not (global_ok and grad_ok):
+        raise AssertionError("accum: global vs k=1 or average vs microbatch "
+                             "disagree")
+
+
+def run_accum(card):
+    """The slice's command at the recipe's batch: 4096 as k microbatches
+    of 256 (128 if a 256 step peaks above 75 GB), fake images, 2
+    optimizer steps, through the CLI's config and the trainer, counters
+    set to 0 before and read after; then peak memory of a k-step against a
+    k = 1 step at the microbatch size, busy and wall ms per optimizer step,
+    and the checks at effective 256.  Returns the launch counts and the
+    phase's numbers."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.core.config import resolve
+    from byol_tpu_torch.core.precision import get_policy
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.training.build import (build_tx, setup_training,
+                                               step_config)
+    from byol_tpu_torch.training.steps import make_train_step
+    from byol_tpu_torch.training.trainer import _to_device, fit
+
+    cuda = torch.device("cuda")
+    model_dir = tempfile.mkdtemp(prefix="chip_smoke_accum_")
+    try:
+        def config(micro):
+            return config_from_args(build_parser().parse_args(
+                ACCUM_ARGV + ["--accum-steps", str(ACCUM_BATCH // micro),
+                              "--model-dir", model_dir]))
+
+        def resolved(cfg):
+            return resolve(cfg.replace(device=dataclasses.replace(
+                cfg.device, num_replicas=1)),
+                num_train_samples=loader.num_train_samples,
+                num_test_samples=loader.num_test_samples,
+                output_size=loader.output_size,
+                input_shape=loader.input_shape)
+
+        cfg = config(ACCUM_MICRO[0])
+        loader = get_loader(cfg.replace(device=dataclasses.replace(
+            cfg.device, num_replicas=1)), num_fake_samples=ACCUM_SAMPLES)
+        host = next(iter(loader.train_loader))
+
+        # which microbatch: one k = 1 step of 256 on a fresh state
+        rcfg = resolved(cfg)
+        _, probe, _, _, _ = setup_training(rcfg, cuda)
+        tx, schedule = build_tx(rcfg)
+        policy = get_policy(cfg.device.half)
+        one = make_train_step(tx, dataclasses.replace(
+            step_config(rcfg), accum_steps=1), schedule, policy)
+        small = _to_device({k: v[:ACCUM_MICRO[0]] for k, v in host.items()},
+                           cuda)
+        probe_peak = _peak_bytes(lambda: one(probe, small))
+        micro = (ACCUM_MICRO[0] if probe_peak <= ACCUM_MEMORY_LIMIT
+                 else ACCUM_MICRO[1])
+        print(f"accum: a k=1 step of {ACCUM_MICRO[0]} peaks at "
+              f"{probe_peak / 1e9:.2f} GB (limit {ACCUM_MEMORY_LIMIT / 1e9:.0f}"
+              f" GB): microbatch {micro}, k = {ACCUM_BATCH // micro} [{card}]",
+              flush=True)
+        del probe, one, small
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg = config(micro)
+        k = cfg.optim.accum_steps
+        t0 = time.perf_counter()
+        _zero_counters()
+        torch.cuda.reset_peak_memory_stats()
+        result = fit(cfg, device=cuda, loader=loader)
+        counts = _read_counters()
+        fit_peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+    steps = len(result.step_losses)
+    print(f"accum: {steps} optimizer steps of {ACCUM_BATCH} = {k} x {micro} "
+          f"in {time.perf_counter() - t0:.1f}s (setup and eval included), "
+          f"losses {result.step_losses}, test loss "
+          f"{result.test_metrics['loss_mean']:.4f} (Polyak params), launches "
+          f"(flash, segment_norms, fused_apply, two_view) = {counts}, peak "
+          f"{fit_peak / 1e9:.2f} GB [{card}]", flush=True)
+    if steps != 2 or not all(map(math.isfinite, result.step_losses + [
+            result.test_metrics["loss_mean"]])):
+        raise AssertionError(f"accum: {steps} steps, losses "
+                             f"{result.step_losses}")
+    if counts != (0, steps, steps, k * steps):
+        raise AssertionError(f"accum: launches {counts}, want (0, {steps}, "
+                             f"{steps}, {k * steps})")
+
+    # peak memory: a k-step on the recipe's batch against one k = 1 step
+    # on a microbatch, each with only its own batch on the card
+    state = result.state
+    rcfg = resolved(cfg)
+    tx, schedule = build_tx(rcfg)
+    scfg = step_config(rcfg)
+    policy = get_policy(cfg.device.half)
+
+    def make_step(c):
+        return make_train_step(tx, c, schedule, policy)
+    accum_step = make_step(scfg)
+    one = make_step(dataclasses.replace(scfg, accum_steps=1))
+    small = _to_device({n: v[:micro] for n, v in host.items()}, cuda)
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_1 = _peak_bytes(lambda: one(state, small))
+    del small
+    big = _to_device(host, cuda)
+    batch_bytes = sum(t.numel() * t.element_size() for t in big.values())
+    peak_k = _peak_bytes(lambda: accum_step(state, big))
+    bound = peak_1 + batch_bytes * (1 - 1 / k) + ACCUM_SLACK
+    memory_ok = peak_k <= bound and peak_k <= ACCUM_MEMORY_LIMIT
+    print(f"accum: peak memory, a k={k} step of {ACCUM_BATCH}: "
+          f"{peak_k / 1e9:.3f} GB; a k=1 step of {micro}: {peak_1 / 1e9:.3f}"
+          f" GB; bound = that + the rest of the uint8 batch "
+          f"({batch_bytes * (1 - 1 / k) / 1e6:.1f} MB) + 1 GiB = "
+          f"{bound / 1e9:.3f} GB: {memory_ok} [{card}]", flush=True)
+    if not memory_ok:
+        raise AssertionError("accum: a k-step holds more than one "
+                             "microbatch's graph")
+
+    # wall ms per optimizer step (2 steps) and device-busy ms (1 profiled)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        accum_step(state, big)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    prof = _device_profile(lambda: accum_step(state, big), 1, card,
+                           f"resnet50 optimizer step of {ACCUM_BATCH} = {k} "
+                           f"x {micro}, per step")
+    row = {"microbatch": micro, "k": k, "wall_ms": wall_ms,
+           "img_per_s": ACCUM_BATCH / wall_ms * 1e3,
+           "busy_ms": prof["busy_ms"], "profiled_wall_ms": prof["wall_ms"],
+           "busy_share": prof["busy_ms"] / prof["wall_ms"],
+           "peak_k_bytes": peak_k, "peak_1_bytes": peak_1,
+           "fit_peak_bytes": fit_peak}
+    print(f"accum: optimizer step of {ACCUM_BATCH} = {k} x {micro}: wall "
+          f"{wall_ms:.1f} ms ({row['img_per_s']:.1f} img/s, 2 steps), device "
+          f"busy {prof['busy_ms']:.1f} ms of a profiled {prof['wall_ms']:.1f} "
+          f"ms ({row['busy_share']:.1%}) [{card}]", flush=True)
+
+    _accum_checks(state, make_step, scfg, big["images"], big["label"], card)
+    return counts, row
+
+
 def run_slice(card):
     """The main path: serve ViT-B/16 through build_service on the card."""
     import numpy as np
@@ -1389,6 +1627,8 @@ def main() -> int:
     ckpt_counts, resumed_counts = run_checkpoint(card)
     torch.cuda.empty_cache()
     input_counts, input_rows = run_input(card)
+    torch.cuda.empty_cache()
+    accum_counts, accum_row = run_accum(card)
 
     main_row = next(r for r in flash_rows
                     if r["shape"] == [64, HEADS, SEQ, 64]
@@ -1411,9 +1651,9 @@ def main() -> int:
     }]
 
     def by_path(i):
-        """A kernel's launches on each training path: the checkpoint
-        phase's uninterrupted run is this slice's main path."""
-        paths = {"training": train_counts[i],
+        """A kernel's launches on each training path: the accum phase's
+        run is this slice's main path."""
+        paths = {"accum": accum_counts[i], "training": train_counts[i],
                  "checkpoint, uninterrupted": ckpt_counts[i],
                  "checkpoint, relaunch after SIGTERM": resumed_counts[i]}
         paths.update({name: c[i] for name, c in input_counts.items()})
@@ -1425,7 +1665,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "byol_tpu_torch/ops/csrc/fused_update.cu",
             "replaces": f"byol_tpu/ops/fused_update.py:{line}",
-            "launches": ckpt_counts[i], "launches_by_path": by_path(i),
+            "launches": accum_counts[i], "launches_by_path": by_path(i),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1436,7 +1676,7 @@ def main() -> int:
         "name": "two_view", "route": "cuda",
         "source": "byol_tpu_torch/ops/csrc/fused_augment.cu",
         "replaces": "byol_tpu/ops/fused_augment.py:179",
-        "launches": ckpt_counts[3], "launches_by_path": by_path(3),
+        "launches": accum_counts[3], "launches_by_path": by_path(3),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -1444,6 +1684,7 @@ def main() -> int:
         "shape": [64, 224, 224, 3],
         "ok": all(r["ok"] for r in k2_rows)})
     print(json.dumps({"input_arms": input_rows}), flush=True)
+    print(json.dumps({"accum": accum_row}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

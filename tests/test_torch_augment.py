@@ -46,10 +46,12 @@ def jax_views(key, b, h, w, strength=1.0):
 
 
 def jax_step_views(seed, strength=1.0):
-    """A ``draw_views(step, b, h, w)`` that hands the port JAX's draws of
-    ``augment_keys(seed, step, 1)[0]``."""
-    def draw(step, b, h, w):
-        return jax_views(augment_keys(seed, step, 1)[0], b, h, w, strength)
+    """A ``draw_views(step, b, h, w, microbatch)`` that hands the port
+    JAX's draws of microbatch i, ``augment_keys(seed, step, k)[i]`` (key i
+    does not depend on k)."""
+    def draw(step, b, h, w, microbatch):
+        key = augment_keys(seed, step, microbatch + 1)[microbatch]
+        return jax_views(key, b, h, w, strength)
     return draw
 
 

@@ -232,10 +232,11 @@ def _tiny_resnet18(module, dtype):
                          dtype=dtype)
 
 
-def _jax_state_as_numpy():
+def _jax_state_as_numpy(polyak_ema=0.0):
     """A tiny JAX TrainState's structure (traced with eval_shape, no
     compile), filled with random values, as a state after some steps has
-    them: momentum, target, statistics and counters all distinct."""
+    them: momentum, target, Polyak params (under ``polyak_ema``),
+    statistics and counters all distinct."""
     net = JaxBYOLNet(backbone=_tiny_resnet18(jax_resnet, jnp.float32),
                      num_classes=CLASSES, head_latent_size=HEAD,
                      projection_size=PROJ)
@@ -247,7 +248,7 @@ def _jax_state_as_numpy():
         variables = net.init({"params": jax.random.PRNGKey(3)},
                              jnp.zeros((2, SIZE, SIZE, 3)), train=True,
                              method="warmup")
-        return jax_create_state(variables, tx)
+        return jax_create_state(variables, tx, polyak_ema=polyak_ema)
     rng = np.random.RandomState(0)
     state = jax.tree_util.tree_map(
         lambda s: (rng.standard_normal(s.shape) * 0.1).astype(s.dtype)
@@ -257,21 +258,24 @@ def _jax_state_as_numpy():
     trace, _ = extract_sgdm_state(state.opt_state)
     return {"params": state.params, "batch_stats": state.batch_stats,
             "target_params": state.target_params, "momentum": trace,
+            "polyak_params": state.polyak_params,
             "count": 37, "step": 37, "ema_step": 41}
 
 
-def _torch_state(seed):
+def _torch_state(seed, polyak_ema=0.0):
     gen = torch.Generator().manual_seed(seed)
     net = BYOLNet(_tiny_resnet18(torch_resnet, torch.float32),
                   num_classes=CLASSES, head_latent_size=HEAD,
                   projection_size=PROJ)
     from byol_tpu_torch.models.layers import init_params
     init_params(net, gen)
-    return create_train_state(net)
+    return create_train_state(net, polyak_ema=polyak_ema)
 
 
 def _assert_bitwise(a, b):
-    for name in ("params", "target", "momentum"):
+    assert (a.polyak is None) == (b.polyak is None)
+    for name in ("params", "target", "momentum") + (
+            () if a.polyak is None else ("polyak",)):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     sa, sb = a.batch_stats(), b.batch_stats()
     assert sa.keys() == sb.keys()
@@ -315,6 +319,39 @@ def test_canonical_round_trip_is_bitwise(tmp_path):
     assert first.data_ptr() == dst.params.data_ptr()
     with pytest.raises(ValueError, match="format"):
         load_canonical(dst, dict(restored, format=2))
+
+
+def test_polyak_round_trip_is_bitwise_and_its_absence_is_named(tmp_path):
+    """A state with a Polyak average: JAX's ``polyak_params`` carried across
+    by ``train_state_from_flax``, saved and restored bit for bit, and kept
+    a view-backed flat buffer.  A tree without ``polyak`` (a format-1 tree
+    of a run without it) loads into a state without Polyak and is refused,
+    naming the key, by a state that needs it; a tree with ``polyak`` is
+    refused by a state without one."""
+    src = _torch_state(0, polyak_ema=0.99)
+    load_converted(src, train_state_from_flax(
+        _jax_state_as_numpy(polyak_ema=0.99), like=src.net.state_dict()))
+    tree = canonical_state(src)
+    assert tree["format"] == 1 and list(tree["polyak"]) == list(src.names)
+    assert not torch.equal(src.polyak, src.params)
+    store = torch_ckpt.CheckpointStore(str(tmp_path / "polyak"))
+    store.save(0, tree)
+    restored, _ = store.restore()
+    store.close()
+    dst = _torch_state(1, polyak_ema=0.99)
+    load_canonical(dst, restored)
+    _assert_bitwise(src, dst)
+    first = dict(dst.polyak_net.named_parameters())[dst.names[0]]
+    assert first.data_ptr() == dst.polyak.data_ptr()
+
+    plain = _torch_state(2)
+    without = canonical_state(plain)
+    assert "polyak" not in without and without["format"] == 1
+    load_canonical(_torch_state(3), without)
+    with pytest.raises(ValueError, match="'polyak'"):
+        load_canonical(dst, without)
+    with pytest.raises(ValueError, match="polyak"):
+        load_canonical(plain, restored)
 
 
 def test_orbax_checkpoint_is_refused_and_nothing_deleted(tmp_path, capsys):
@@ -361,6 +398,13 @@ ARGVS = {
              "--data-backend", "native", "--aug-spec", "paper",
              "--valid-fraction", "0.25", "--workers-per-replica", "6",
              "--num-synth-samples", "100", "--download", "0"],
+    "accum": ["--task", "synth", "--num-synth-samples", "8192", "--arch",
+              "resnet50", "--image-size-override", "224", "--batch-size",
+              "4096", "--accum-steps", "16", "--accum-bn-mode", "average",
+              "--augment-placement", "step", "--fused-augment", "on",
+              "--fused-update", "on", "--polyak-ema", "0.99", "--epochs",
+              "1", "--weight-initialization", "orthogonal",
+              "--ema-scaling-reference-batch", "256"],
     "lifecycle": ["--uid", "exp1", "--arch", "resnet18", "--batch-size",
                   "8", "--early-stop", "--fault-at-step", "5",
                   "--no-save-on-signal", "--no-half", "--seed", "7", "--lr",

@@ -35,6 +35,15 @@ def _write_tree(root, splits=(("train", 6), ("test", 2))):
     Image.fromarray(img).save(os.path.join(root, "train", "cat", "z.png"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _private_jax_library(tmp_path_factory):
+    """The JAX package's native library from a private build (see
+    tests/test_torch_native_aug.py)."""
+    from tests.test_torch_native_aug import private_jax_native
+    with private_jax_native(tmp_path_factory):
+        yield
+
+
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("tree"))

@@ -64,10 +64,18 @@ def _assert_batches_equal(ours, theirs):
 
 
 @pytest.fixture(scope="module")
-def native_pair():
-    jcfg, cfg = _cfgs(data_backend="native", valid_fraction=0.25)
-    return (jax_loader.get_loader(jcfg, num_fake_samples=N),
-            torch_loader.get_loader(cfg, num_fake_samples=N))
+def native_pair(tmp_path_factory):
+    """Both packages' native loaders, the JAX one on a private build of its
+    library (tests/test_torch_native_aug.py says why): a broken shared
+    build would move it to tf.data with a printed line, and its batches
+    would not be the native ones."""
+    from byol_tpu.data import native_aug as jax_native
+    from tests.test_torch_native_aug import private_jax_native
+    with private_jax_native(tmp_path_factory):
+        jax_native.load()                # raises with the build's error
+        jcfg, cfg = _cfgs(data_backend="native", valid_fraction=0.25)
+        yield (jax_loader.get_loader(jcfg, num_fake_samples=N),
+               torch_loader.get_loader(cfg, num_fake_samples=N))
 
 
 def test_native_batches_bitwise_equal_jax(native_pair):

@@ -3,7 +3,16 @@ over its copy of image_pipeline.cpp) against the JAX package's
 (byol_tpu/data/native_aug.py) on the same inputs, seed and index_base:
 bitwise equal views, at 1 and 4 threads; the fused JPEG path with its PIL
 fallback when both libraries link libjpeg; and the port's build writes
-under byol_tpu_torch/ only."""
+under byol_tpu_torch/ only.
+
+The JAX package builds its library in place with no lock
+(byol_tpu/data/native_aug.py): on a fresh tree, parallel test workers
+build it at once, and one can load another's half-written file ("file
+too short"; reproduced with 6 processes).  That worker's JAX library is
+then broken for good, and its loader moves to tf.data.  So every port test
+that runs the JAX library loads a copy of its own
+(:func:`private_jax_native`)."""
+import contextlib
 import io
 import os
 import re
@@ -16,6 +25,30 @@ from byol_tpu.data import native_aug as jax_native
 from byol_tpu_torch.data import native_aug
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+_PRIVATE_DIRS = []          # this process's build directory, made once
+
+
+@contextlib.contextmanager
+def private_jax_native(tmp_path_factory):
+    """The JAX package's native library, built (once per test process)
+    into a directory of this process and loaded from there until the
+    block ends."""
+    if not _PRIVATE_DIRS:
+        _PRIVATE_DIRS.append(tmp_path_factory.mktemp("jax_native"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB", os.path.join(_PRIVATE_DIRS[0],
+                                                    "libbyol_aug.so"))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_build_error", None)
+        yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _private_jax_library(tmp_path_factory):
+    with private_jax_native(tmp_path_factory):
+        yield
 
 
 def _images(n=5, h=40, w=48, seed=0):

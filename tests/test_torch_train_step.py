@@ -56,22 +56,33 @@ def _batches(n, seed=0):
             for _ in range(n)]
 
 
-def _jax_side(half, scfg_kw, ema_init_mode):
-    dtype = jnp.bfloat16 if half else jnp.float32
+def _jax_net(dtype, bn_axis_name=None):
     backbone = jax_resnet.ResNet(stage_sizes=[1, 1],
                                  block_cls=jax_resnet.Bottleneck, width=8,
                                  small_inputs=True, zero_init_residual=False,
-                                 dtype=dtype)
-    net = JaxBYOLNet(backbone=backbone, num_classes=CLASSES,
-                     head_latent_size=HEAD, projection_size=PROJ,
-                     dtype=dtype)
-    variables = net.init({"params": jax.random.PRNGKey(0)},
-                         jnp.zeros((2, SIZE, SIZE, 3)), train=True,
-                         method="warmup")
+                                 dtype=dtype, bn_axis_name=bn_axis_name)
+    return JaxBYOLNet(backbone=backbone, num_classes=CLASSES,
+                      head_latent_size=HEAD, projection_size=PROJ,
+                      dtype=dtype, bn_axis_name=bn_axis_name)
+
+
+def _jax_side(half, scfg_kw, ema_init_mode, polyak_ema=0.0):
+    """-> (net, state, jitted train step, StepConfig).  Under
+    ``accum_bn_mode='global'`` the step's net syncs its BatchNorms over the
+    microbatch axis; the variables come from the same net without it (the
+    same tree, and init needs no axis bound)."""
+    dtype = jnp.bfloat16 if half else jnp.float32
+    variables = _jax_net(dtype).init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((2, SIZE, SIZE, 3)),
+        train=True, method="warmup")
+    global_bn = (scfg_kw.get("accum_steps", 1) > 1
+                 and scfg_kw.get("accum_bn_mode") == "global")
+    net = _jax_net(dtype, jax_steps.ACCUM_AXIS if global_bn else None)
     tx, sched = jax_build_optimizer(
         "lars_momentum", base_lr=BASE_LR, global_batch_size=BATCH,
         weight_decay=WD, total_units=TOTAL, warmup_units=0)
-    state = jax_create_state(variables, tx, ema_init_mode=ema_init_mode)
+    state = jax_create_state(variables, tx, ema_init_mode=ema_init_mode,
+                             polyak_ema=polyak_ema)
     scfg = jax_steps.StepConfig(total_train_steps=TOTAL, weight_decay=WD,
                                 **scfg_kw)
     step = jax.jit(jax_steps.make_train_step(
@@ -85,7 +96,8 @@ def _as_numpy(state):
     return {"params": get(state.params), "batch_stats": get(state.batch_stats),
             "target_params": get(state.target_params),
             "momentum": get(trace), "count": int(count),
-            "step": int(state.step), "ema_step": int(state.ema_step)}
+            "step": int(state.step), "ema_step": int(state.ema_step),
+            "polyak_params": get(state.polyak_params)}
 
 
 def _torch_side(half, scfg_kw, jax_state, draw_views=None):
@@ -96,7 +108,8 @@ def _torch_side(half, scfg_kw, jax_state, draw_views=None):
                                    dtype=dtype)
     net = BYOLNet(backbone, num_classes=CLASSES, head_latent_size=HEAD,
                   projection_size=PROJ, dtype=dtype)
-    state = create_train_state(net)
+    state = create_train_state(net,
+                               polyak_ema=scfg_kw.get("polyak_ema", 0.0))
     load_converted(state, train_state_from_flax(_as_numpy(jax_state),
                                                 like=net.state_dict()))
     tx, sched = build_optimizer(
@@ -113,8 +126,12 @@ def _torch_batch(batch):
 
 def _assert_states_match(state, jax_state):
     want = train_state_from_flax(_as_numpy(jax_state))
-    for key, buf in (("params", state.params), ("momentum", state.momentum),
-                     ("target", state.target)):
+    bufs = [("params", state.params), ("momentum", state.momentum),
+            ("target", state.target)]
+    assert ("polyak" in want) == (state.polyak is not None)
+    if state.polyak is not None:
+        bufs.append(("polyak", state.polyak))
+    for key, buf in bufs:
         for name, got in state.tree(buf).items():
             np.testing.assert_allclose(got.numpy(), want[key][name].numpy(),
                                        err_msg=f"{key} {name}", **TOL)
@@ -257,7 +274,8 @@ def test_resolve_matches_jax(batch, replicas, samples, epochs):
 @pytest.mark.parametrize("overrides", [
     dict(device=dict(zero1="on")), dict(device=dict(flat_resident="on")),
     dict(device=dict(telemetry="epoch")), dict(model=dict(remat=True)),
-    dict(optim=dict(accum_steps=2)), dict(device=dict(model_parallel=2))])
+    dict(device=dict(sequence_parallel=2)),
+    dict(device=dict(model_parallel=2))])
 def test_resolve_refuses_what_is_not_ported(overrides):
     cfg = torch_config.Config()
     for section, values in overrides.items():
