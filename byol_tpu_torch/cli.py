@@ -12,6 +12,13 @@ turns that off), and ``--fault-at-step N`` exits at step N without saving.
 The data axis is 1 (one card), as the JAX CLI's ``--num-replicas 0``
 resolves it on a one-device host, so both name a run of the same flags
 alike.
+
+Every run writes ``<--log-dir>/<run name>/run.jsonl`` (the JAX event
+schema), ``trace.json`` (the span flight recorder, ``--spans on``) and the
+grapher's ``metrics.jsonl``; ``python -m byol_tpu_torch report
+<run.jsonl>`` renders its goodput waterfall.  ``--telemetry step|epoch``
+adds the health records, and ``--nan-policy halt`` stops the run at a
+non-finite gradient or loss with a ``state_dump`` in the log.
 """
 from __future__ import annotations
 
@@ -46,6 +53,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "accepts an on-disk valid/ root, which wins")
     p.add_argument("--uid", type=str, default="",
                    help="prefix of the run name (the checkpoint directory)")
+    p.add_argument("--log-dir", type=str, default="./runs",
+                   help="run.jsonl, trace.json and the grapher's metrics "
+                        "go to <log-dir>/<run name>")
+    p.add_argument("--grapher", type=str, default="both",
+                   choices=("tensorboard", "jsonl", "both", "null"),
+                   help="metric writer(s); 'both' writes metrics.jsonl "
+                        "alone where the tensorboard package is missing")
     p.add_argument("--batch-size", type=int, default=4096)
     p.add_argument("--epochs", type=int, default=3000)
     p.add_argument("--image-size-override", type=int, default=224)
@@ -121,6 +135,31 @@ def build_parser() -> argparse.ArgumentParser:
                    action=argparse.BooleanOptionalAction, default=True,
                    help="on SIGTERM (a preemption notice) checkpoint at "
                         "the next step and exit 143")
+    p.add_argument("--telemetry", type=str, default="off",
+                   choices=("off", "epoch", "step"),
+                   help="training-health telemetry (observability/"
+                        "health.py): 'off' runs the step without it; "
+                        "'epoch' reads one health record per epoch after "
+                        "the epoch's readback; 'step' reads one every "
+                        "--telemetry-interval steps, one interval late, "
+                        "adding no sync of its own to the step loop")
+    p.add_argument("--telemetry-interval", type=int, default=50,
+                   help="optimizer steps between sampled health records "
+                        "under --telemetry step")
+    p.add_argument("--nan-policy", type=str, default="warn",
+                   choices=("warn", "halt"),
+                   help="response to a non-finite gradient/loss in the "
+                        "health vector: 'warn' records an anomaly event; "
+                        "'halt' dumps step/state metadata to the run log "
+                        "and raises (requires --telemetry)")
+    p.add_argument("--spans", type=str, default="on", choices=("on", "off"),
+                   help="host-side span flight recorder: 'on' times every "
+                        "hot-loop phase, emits goodput/span_stats events "
+                        "into run.jsonl and writes trace.json; 'off' "
+                        "records nothing")
+    p.add_argument("--watchdog-timeout", type=float, default=0.0,
+                   help="seconds without progress before dumping all "
+                        "thread stacks and exiting (0 = off)")
     p.add_argument("--half", action="store_true", default=True,
                    help="bf16 compute (the default)")
     p.add_argument("--no-half", dest="half", action="store_false")
@@ -134,6 +173,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
         task=TaskConfig(task=args.task, data_dir=args.data_dir,
                         batch_size=args.batch_size, epochs=args.epochs,
                         download=bool(args.download), uid=args.uid,
+                        log_dir=args.log_dir, grapher=args.grapher,
                         image_size_override=args.image_size_override,
                         data_backend=args.data_backend,
                         augment_placement=args.augment_placement,
@@ -162,7 +202,11 @@ def config_from_args(args: argparse.Namespace) -> Config:
                             debug_step=args.debug_step,
                             seed=args.seed, half=args.half,
                             fault_at_step=args.fault_at_step,
-                            save_on_signal=args.save_on_signal))
+                            save_on_signal=args.save_on_signal,
+                            telemetry=args.telemetry,
+                            telemetry_interval=args.telemetry_interval,
+                            nan_policy=args.nan_policy, spans=args.spans,
+                            watchdog_timeout=args.watchdog_timeout))
 
 
 def main(argv: Optional[List[str]] = None) -> int:

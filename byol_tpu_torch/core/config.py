@@ -178,8 +178,6 @@ def _refuse_unported(cfg: Config) -> None:
     if cfg.device.model_parallel > 1 or cfg.device.sequence_parallel > 1:
         raise _not_ported("--model-parallel / --sequence-parallel > 1",
                           "section 1 items 10 and 14")
-    if cfg.device.telemetry != "off":
-        raise _not_ported("--telemetry", "section 1 item 13")
     if cfg.model.remat or cfg.model.remat_policy != "none":
         raise _not_ported("--remat / --remat-policy", "section 1 item 14")
 

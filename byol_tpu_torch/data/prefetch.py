@@ -31,6 +31,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from byol_tpu_torch.observability import spans as spans_lib
 from byol_tpu_torch.observability.meters import InputPipelineMeter
 
 _END = object()          # producer sentinel: source iterator exhausted
@@ -62,14 +63,20 @@ def _to_device(value, device: torch.device) -> torch.Tensor:
 
 
 def prefetch_to_device(iterator: Iterator, device, size: int = 2,
-                       meter: Optional[InputPipelineMeter] = None
+                       meter: Optional[InputPipelineMeter] = None,
+                       recorder=spans_lib.NULL
                        ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield the iterator's batches (dicts of arrays or tensors) as
     dicts of tensors on ``device``, keeping up to ``size`` in flight.
 
     ``meter``: the producer records each batch's bytes and the queue depth
     it leaves; the consumer its wait for the next batch (the first one as
-    the pipeline's fill)."""
+    the pipeline's fill).
+
+    ``recorder`` (observability.spans.SpanRecorder): each consumer wait
+    becomes an ``input/fill`` (first batch) or ``input/wait`` span, in the
+    consumer's thread, so it never overlaps the trainer's other top-level
+    spans; goodput.py counts it as ``input_wait``."""
     if size < 1:
         raise ValueError(f"prefetch size must be >= 1, got {size}")
     device = torch.device(device)
@@ -114,7 +121,8 @@ def prefetch_to_device(iterator: Iterator, device, size: int = 2,
         first = True
         while True:
             t0 = time.perf_counter()
-            item = q.get()
+            with recorder.span("input/fill" if first else "input/wait"):
+                item = q.get()
             if item is _END:
                 return
             if isinstance(item, _Failure):

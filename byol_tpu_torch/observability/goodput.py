@@ -1,0 +1,192 @@
+"""Goodput/badput accounting: fold flight-recorder spans into a wall-time
+partition (counterpart of byol_tpu/observability/goodput.py, the same
+buckets and the same arithmetic).
+
+The metric that decides time to accuracy is not the peak step rate but the
+FRACTION of wall time spent in productive device work.  This module turns
+the host-side spans (observability/spans.py) into that number, per epoch
+and per run:
+
+- **productive**: ``train/`` spans: the dispatch windows (the host
+  enqueueing the step's kernels) plus the epoch readback (the host blocked
+  until the card has run every step it was given);
+- **badput buckets** (named, additive):
+  ``input_wait``       : blocked on the host input pipeline (``input/``);
+  ``startup_compile``  : model build and the first step of a fit, which
+                         carries cuDNN autotuning, the first kernel-library
+                         load and the FLOP count (``startup/``);
+  ``telemetry_readback``: the telemetry sink's readback windows
+                         (``telemetry/``);
+  ``eval``             : eval/valid passes (``eval/``);
+  ``checkpoint``       : checkpoint writes (``checkpoint/``);
+  ``host_other``       : the unattributed remainder (Python between spans,
+                         logging, the grapher).
+
+Only TOP-LEVEL spans (depth 0) are attributed, and the partition is exact
+by construction: ``productive + sum(badput) == wall`` (events.py checks
+the identity to 1 % on every ``goodput`` event).
+
+One :class:`GoodputMeter` per run: ``fold()`` closes the current window
+(epoch boundary), ``final()`` closes the tail and emits the run totals.
+Windows are contiguous from the meter's construction to ``final()``.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+# span-name prefix -> badput bucket (first match wins; ``train/`` is
+# productive, anything unmatched lands in host_other via the remainder)
+BADPUT_PREFIXES = (
+    ("input/", "input_wait"),
+    ("startup/", "startup_compile"),
+    ("telemetry/", "telemetry_readback"),
+    ("eval/", "eval"),
+    ("checkpoint/", "checkpoint"),
+)
+PRODUCTIVE_PREFIX = "train/"
+OTHER_BUCKET = "host_other"
+
+# the full bucket vocabulary, for docs/renderers (host_other always last)
+BADPUT_BUCKETS = tuple(b for _, b in BADPUT_PREFIXES) + (OTHER_BUCKET,)
+
+
+def bucket_of(name: str) -> Optional[str]:
+    """Badput bucket for a span name; None = productive (``train/``) or
+    unattributed (folded into host_other by the remainder arithmetic)."""
+    for prefix, bucket in BADPUT_PREFIXES:
+        if name.startswith(prefix):
+            return bucket
+    return None
+
+
+def attribute(records: List[Any], wall: float
+              ) -> Tuple[float, float, Dict[str, float]]:
+    """Partition ``wall`` seconds over a window's DEPTH-0 spans; returns
+    ``(wall, productive, badput)`` with the identity
+    ``productive + sum(badput) == wall`` exact.  The unattributed
+    remainder lands in ``host_other``; a (clock-jitter) negative
+    remainder means attributed > wall, and the attributed total is
+    reported as wall so the identity stays exact rather than lying by
+    clamping."""
+    top = [r for r in records if r.depth == 0]
+    productive = 0.0
+    badput: Dict[str, float] = {b: 0.0 for b in BADPUT_BUCKETS}
+    for r in top:
+        if r.name.startswith(PRODUCTIVE_PREFIX):
+            productive += r.seconds
+        else:
+            badput[bucket_of(r.name) or OTHER_BUCKET] += r.seconds
+    remainder = wall - productive - sum(badput.values())
+    if remainder >= 0.0:
+        badput[OTHER_BUCKET] += remainder
+    else:
+        wall = productive + sum(badput.values())
+    return wall, productive, badput
+
+
+def span_stats(records: List[Any]) -> Dict[str, Dict[str, float]]:
+    """Per-name aggregate over a window of spans: count, total seconds,
+    p50/p99/max milliseconds — the ``span_stats`` event payload."""
+    by_name: Dict[str, List[float]] = {}
+    for r in records:
+        by_name.setdefault(r.name, []).append(r.seconds)
+    out: Dict[str, Dict[str, float]] = {}
+    for name, secs in sorted(by_name.items()):
+        arr = np.asarray(secs, np.float64)
+        out[name] = {
+            "count": int(arr.size),
+            "seconds": float(arr.sum()),
+            "p50_ms": float(np.percentile(arr, 50) * 1e3),
+            "p99_ms": float(np.percentile(arr, 99) * 1e3),
+            "max_ms": float(arr.max() * 1e3),
+        }
+    return out
+
+
+class GoodputMeter:
+    """Folds a SpanRecorder's ring into contiguous goodput windows.
+
+    Assumes the recorder's DEPTH-0 spans do not overlap in time: true for
+    the trainer (one thread drives the phases; the prefetch generator's
+    ``input/`` spans open in that same thread).  A recorder shared with
+    concurrent depth-0 writers would double-count; the serving stack keeps
+    its own per-request accounting (serving/meter.py) instead.
+    """
+
+    def __init__(self, recorder: Any) -> None:
+        self._rec = recorder
+        self._since = -1
+        self._t_window = time.perf_counter()
+        self._windows = 0
+        self._run_wall = 0.0
+        self._run_productive = 0.0
+        self._run_badput: Dict[str, float] = {}
+
+    # ---- window folding ---------------------------------------------------
+    def fold(self, *, scope: str = "epoch", epoch: Optional[int] = None,
+             mfu: Optional[float] = None, events: Optional[Any] = None,
+             emit: bool = True, **extra: Any) -> Dict[str, Any]:
+        """Close the current window: attribute its spans, accumulate run
+        totals, optionally emit ``goodput`` + ``span_stats`` events.
+        Returns the goodput payload."""
+        now = time.perf_counter()
+        wall = now - self._t_window
+        self._t_window = now
+        records = self._rec.records(since_seq=self._since)
+        if records:
+            self._since = max(r.seq for r in records)
+        wall, productive, badput = attribute(records, wall)
+        self._windows += 1
+        self._run_wall += wall
+        self._run_productive += productive
+        for b, v in badput.items():
+            self._run_badput[b] = self._run_badput.get(b, 0.0) + v
+        payload: Dict[str, Any] = {
+            "scope": scope,
+            "wall_seconds": wall,
+            "productive_seconds": productive,
+            "badput": badput,
+            "goodput_fraction": (productive / wall if wall > 0 else 0.0),
+            **extra,
+        }
+        if epoch is not None:
+            payload["epoch"] = epoch
+        if mfu is not None:
+            payload["mfu"] = mfu
+        if self._rec.dropped:
+            payload["spans_dropped"] = int(self._rec.dropped)
+        if emit and events is not None:
+            events.emit("goodput", **payload)
+            stats = span_stats(records)
+            if stats:
+                ev: Dict[str, Any] = {"scope": scope, "spans": stats}
+                if epoch is not None:
+                    ev["epoch"] = epoch
+                events.emit("span_stats", **ev)
+        return payload
+
+    # ---- end of run -------------------------------------------------------
+    def final(self, *, events: Optional[Any] = None,
+              mfu: Optional[float] = None, **extra: Any) -> Dict[str, Any]:
+        """Absorb the tail window and emit the run-scope totals."""
+        self.fold(scope="epoch_tail", events=events, emit=False)
+        payload: Dict[str, Any] = {
+            "scope": "run",
+            "wall_seconds": self._run_wall,
+            "productive_seconds": self._run_productive,
+            "badput": dict(self._run_badput),
+            "goodput_fraction": (self._run_productive / self._run_wall
+                                 if self._run_wall > 0 else 0.0),
+            "windows": self._windows,
+            **extra,
+        }
+        if mfu is not None:
+            payload["mfu"] = mfu
+        if self._rec.dropped:
+            payload["spans_dropped"] = int(self._rec.dropped)
+        if events is not None:
+            events.emit("goodput", **payload)
+        return payload

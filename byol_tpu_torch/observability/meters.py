@@ -1,7 +1,12 @@
-"""Input-pipeline health (counterpart of ``InputPipelineMeter`` and
-``input_log_line`` in byol_tpu/observability/meters.py).
+"""Epoch metric accumulation, the epoch log lines, input-pipeline health
+and step timing (counterpart of byol_tpu/observability/meters.py).
 
-:func:`byol_tpu_torch.data.prefetch.prefetch_to_device` feeds the meter:
+:class:`MetricAccumulator` sums the step metrics on the device and reads
+them back once, at the epoch's end.  :class:`StepTimer` gives images/s
+over synchronised intervals, MFU, and the step-time tail of an epoch.
+
+:func:`byol_tpu_torch.data.prefetch.prefetch_to_device` feeds the input
+meter:
 its producer records the bytes each batch ships to the device and the
 queue depth it leaves, its consumer how long the trainer blocked for the
 next batch.  A wait above ``starvation_threshold_s`` is a STARVED step:
@@ -14,7 +19,62 @@ epoch boundary, after the iteration ended.
 """
 from __future__ import annotations
 
-from typing import Dict
+import time
+from collections import deque
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+
+class MetricAccumulator:
+    """Device-side running sums of step metrics, read back at the epoch's
+    end (no host sync per step).
+
+    A metric dict holding ``_weight`` (the valid rows of a padded eval
+    batch) is accumulated as a weighted mean: each metric is a mean over
+    ``_weight`` rows, so the epoch value is sum(metric * w) / sum(w).
+    ``_weight`` never appears in ``result()``."""
+
+    def __init__(self) -> None:
+        self._sum: Dict[str, torch.Tensor] = {}
+        self._weight: Optional[torch.Tensor] = None
+        self.count = 0
+
+    def update(self, metrics: Dict[str, Any]) -> None:
+        w = metrics.get("_weight")
+        for k, v in metrics.items():
+            if k == "_weight":
+                continue
+            v = v * w if w is not None else v
+            self._sum[k] = self._sum[k] + v if k in self._sum else v
+        if w is not None:
+            self._weight = w if self._weight is None else self._weight + w
+        self.count += 1
+
+    def result(self) -> Dict[str, float]:
+        """The epoch means, as Python floats (one readback)."""
+        denom = (float(self._weight) if self._weight is not None
+                 else float(self.count))
+        return {k: float(v) / denom for k, v in self._sum.items()}
+
+    def total_weight(self) -> Optional[float]:
+        """Total valid rows when the metrics carried ``_weight``."""
+        return float(self._weight) if self._weight is not None else None
+
+
+def epoch_log_line(prefix: str, epoch: int, num_samples: int,
+                   elapsed_s: float, metrics: Dict[str, Any]) -> str:
+    """The reference's one-line epoch summary (the JAX package's format):
+    prefix, epoch, samples, seconds, loss, top1/top5."""
+    def get(k):
+        v = metrics.get(k)
+        return float(v) if v is not None else float("nan")
+    return (f"{prefix}[Epoch {epoch}][{num_samples} samples]"
+            f"[{elapsed_s:.2f} sec]: loss: {get('loss_mean'):.4f}\t"
+            f"byol: {get('byol_loss_mean'):.4f}\t"
+            f"linear: {get('linear_loss_mean'):.4f}\t"
+            f"top1: {get('top1_mean'):.4f}\ttop5: {get('top5_mean'):.4f}")
 
 
 class InputPipelineMeter:
@@ -76,3 +136,85 @@ def input_log_line(epoch: int, meter: InputPipelineMeter) -> str:
             f"({meter.starved_steps} steps)\t"
             f"fill: {meter.first_fill_seconds:.2f} sec\t"
             f"queue depth: {meter.avg_queue_depth():.2f}")
+
+
+class StepTimer:
+    """images/s per card measured over synchronised intervals, MFU, and
+    the step-time tail.
+
+    ``record_epoch`` takes an elapsed time that ends after the epoch's
+    synchronise and metric readback, so the rate is end to end.
+    ``tick()`` stamps one optimizer step without synchronising: on a CUDA
+    device it records a timing event on the current stream (the card's
+    clock at the point the step's work ends), on the CPU a host timestamp;
+    the intervals are read at the epoch's end, after the synchronise.  On
+    the card they are the device's step times, where the JAX package's
+    dispatch-to-dispatch intervals converge to them only under
+    backpressure."""
+
+    def __init__(self, global_batch: int, n_chips: int = 1,
+                 device: Any = "cpu"):
+        self.global_batch = global_batch
+        self.n_chips = max(n_chips, 1)
+        self._cuda = torch.device(device).type == "cuda"
+        self._rate = 0.0
+        self._flops_per_sample: Optional[float] = None
+        self._peak_tflops: Optional[float] = None
+        # bounded: a pathological epoch must not grow host memory
+        self._ticks: "deque[Any]" = deque(maxlen=1 << 16)
+
+    def set_flops(self, flops_per_sample: Optional[float],
+                  peak_tflops: Optional[float]) -> None:
+        """Arm MFU reporting (observability.flops); either None disarms."""
+        self._flops_per_sample = flops_per_sample
+        self._peak_tflops = peak_tflops
+
+    @property
+    def flops_per_sample(self) -> Optional[float]:
+        return self._flops_per_sample
+
+    def mfu(self) -> Optional[float]:
+        from byol_tpu_torch.observability.flops import mfu as _mfu
+        return _mfu(self._rate, self._flops_per_sample, self._peak_tflops)
+
+    def record_epoch(self, steps: int, elapsed_s: float) -> None:
+        """One epoch's synchronised (steps, wall-clock) measurement."""
+        if steps > 0 and elapsed_s > 0.0:
+            self._rate = (self.global_batch * steps / elapsed_s
+                          / self.n_chips)
+
+    def images_per_sec_per_chip(self) -> float:
+        """Most recent epoch's rate (0.0 before the first epoch ends)."""
+        return self._rate
+
+    # ---- step-time tail ---------------------------------------------------
+    def tick(self) -> None:
+        """Stamp the end of one optimizer step (no synchronise)."""
+        if self._cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self._ticks.append(event)
+        else:
+            self._ticks.append(time.perf_counter())
+
+    def reset_ticks(self) -> None:
+        """Start a fresh epoch window."""
+        self._ticks.clear()
+
+    def _intervals(self) -> np.ndarray:
+        ticks = list(self._ticks)
+        if self._cuda:
+            ticks[-1].synchronize()
+            return np.asarray([a.elapsed_time(b) / 1e3
+                               for a, b in zip(ticks, ticks[1:])])
+        return np.diff(np.asarray(ticks, np.float64))
+
+    def epoch_step_quantiles(self) -> Optional[Dict[str, float]]:
+        """p50/p99/max of this epoch's step intervals, or None below 3
+        intervals (a tail of one or two samples is noise)."""
+        if len(self._ticks) < 4:
+            return None
+        d = self._intervals()
+        return {"step_time_p50_s": float(np.percentile(d, 50)),
+                "step_time_p99_s": float(np.percentile(d, 99)),
+                "step_time_max_s": float(d.max())}

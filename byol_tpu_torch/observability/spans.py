@@ -1,20 +1,254 @@
-"""The span recorder seam (counterpart of byol_tpu/observability/spans.py).
+"""Span-based flight recorder: attribute every second of a run
+(counterpart of byol_tpu/observability/spans.py).
 
-Only the no-op recorder exists in this slice: the engine and the service
-open their spans through it, and it records nothing.  The flight recorder
-and its Chrome-trace export come with the observability slice.
+A :class:`SpanRecorder` collects host-side begin/end spans: monotonic
+clock (``time.perf_counter``), nestable, per-thread depth, bounded ring.
+The trainer wraps every hot-loop phase in one (input wait, dispatch, epoch
+readback, eval, checkpoint, telemetry readback, startup).  Every span also
+opens a :func:`profiling.annotate` region (``record_function``), so in a
+captured torch.profiler trace the host spans line up with the card's
+kernels.
+
+Two consumers fold the ring:
+
+- :mod:`byol_tpu_torch.observability.goodput` partitions wall time into
+  productive step time and named badput buckets, per epoch and per run;
+- :func:`export_chrome_trace` writes a Chrome-trace JSON file (load it in
+  ``chrome://tracing`` or https://ui.perfetto.dev).
+
+Spans off: :data:`NULL` (a :class:`NullRecorder`) is a shared no-op whose
+``span()`` returns one reusable context manager: no clock read, no
+allocation, no ring append.
+
+A span times the HOST: on a CUDA device the step's kernels run
+asynchronously, so a dispatch span measures the enqueue, and the epoch
+readback span holds the wait for the card to catch up.
 """
 from __future__ import annotations
 
-import contextlib
+import itertools
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, Iterable, List, Optional
+
+from byol_tpu_torch.observability import profiling
+
+# default ring capacity: ~3 spans a step for 20k steps; past it the OLDEST
+# spans are evicted (``dropped`` counts them)
+_CAPACITY = 1 << 16
+
+
+class Span:
+    """One closed span: ``[t0, t1]`` on the perf_counter clock."""
+
+    __slots__ = ("name", "t0", "t1", "tid", "depth", "seq", "attrs")
+
+    def __init__(self, name: str, t0: float, t1: float, tid: int,
+                 depth: int, seq: int, attrs: Optional[Dict[str, Any]]):
+        self.name = name
+        self.t0 = t0
+        self.t1 = t1
+        self.tid = tid
+        self.depth = depth
+        self.seq = seq
+        self.attrs = attrs
+
+    @property
+    def seconds(self) -> float:
+        return self.t1 - self.t0
+
+    def __repr__(self) -> str:
+        return (f"Span({self.name!r}, {self.seconds * 1e3:.3f}ms, "
+                f"depth={self.depth}, seq={self.seq})")
+
+
+class _ActiveSpan:
+    """The context manager one ``span()`` call returns.  Closing appends
+    the record; the span is also a ``profiling.annotate`` region."""
+
+    __slots__ = ("_rec", "_name", "_attrs", "_t0", "_depth", "_ann")
+
+    def __init__(self, rec: "SpanRecorder", name: str,
+                 attrs: Optional[Dict[str, Any]]):
+        self._rec = rec
+        self._name = name
+        self._attrs = attrs
+
+    def __enter__(self) -> "_ActiveSpan":
+        local = self._rec._local
+        self._depth = getattr(local, "depth", 0)
+        local.depth = self._depth + 1
+        self._ann = profiling.annotate(self._name)
+        self._ann.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = time.perf_counter()
+        self._ann.__exit__(exc_type, exc, tb)
+        self._rec._local.depth = self._depth
+        self._rec._append(Span(self._name, self._t0, t1,
+                               threading.get_ident(), self._depth,
+                               next(self._rec._seq), self._attrs))
+        return False
+
+
+class SpanRecorder:
+    """Bounded flight recorder.
+
+    ``span(name, **attrs)`` returns a context manager; nesting tracks a
+    per-thread depth so aggregators attribute only TOP-LEVEL spans (a
+    nested span's time is inside its parent's).  Appends are a deque push
+    under the GIL, and the seq counter is an ``itertools.count``.
+    """
+
+    enabled = True
+
+    def __init__(self, capacity: int = _CAPACITY) -> None:
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        self._ring: "deque[Span]" = deque(maxlen=capacity)
+        self._seq = itertools.count()
+        self._total = 0
+        self._local = threading.local()
+
+    def span(self, name: str, **attrs: Any) -> _ActiveSpan:
+        return _ActiveSpan(self, name, attrs or None)
+
+    def _append(self, rec: Span) -> None:
+        self._ring.append(rec)
+        self._total += 1
+
+    # ---- readout ----------------------------------------------------------
+    @property
+    def dropped(self) -> int:
+        """Spans evicted by the ring bound (recorded minus retained)."""
+        return max(0, self._total - len(self._ring))
+
+    def records(self, since_seq: int = -1) -> List[Span]:
+        """Snapshot of retained spans with ``seq > since_seq``, oldest
+        first (``list(deque)`` is atomic under the GIL)."""
+        snap = list(self._ring)
+        if since_seq < 0:
+            return snap
+        return [r for r in snap if r.seq > since_seq]
+
+    def last_seq(self) -> int:
+        snap = list(self._ring)
+        return snap[-1].seq if snap else -1
+
+    def clear(self) -> None:
+        self._ring.clear()
+        self._total = 0
+
+
+class _NullSpan:
+    """Shared no-op context manager: the whole spans-off path."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()
 
 
 class NullRecorder:
-    enabled = False
+    """Spans off: ``span()`` hands back one shared no-op context manager."""
 
-    def span(self, name: str, **attrs):
-        del name, attrs
-        return contextlib.nullcontext()
+    enabled = False
+    capacity = 0
+    dropped = 0
+
+    def span(self, name: str, **attrs: Any) -> _NullSpan:
+        return _NULL_SPAN
+
+    def records(self, since_seq: int = -1) -> List[Span]:
+        return []
+
+    def last_seq(self) -> int:
+        return -1
+
+    def clear(self) -> None:
+        pass
 
 
 NULL = NullRecorder()
+
+# Module-level default recorder for scripts that want ``spans.span("...")``
+# without threading a recorder through; NULL unless set.  The trainer and
+# the serving stack pass their own recorders.
+_default: Any = NULL
+
+
+def set_default(recorder: Any) -> None:
+    global _default
+    _default = recorder
+
+
+def get_default() -> Any:
+    return _default
+
+
+def span(name: str, **attrs: Any):
+    """Record on the module default recorder."""
+    return _default.span(name, **attrs)
+
+
+# ---------------------------------------------------------------------------
+# Chrome trace export
+# ---------------------------------------------------------------------------
+
+def _json_safe(value: Any) -> Any:
+    if isinstance(value, float):
+        from byol_tpu_torch.observability.events import sanitize
+        return sanitize(value)
+    if isinstance(value, (str, int, bool)) or value is None:
+        return value
+    if isinstance(value, (list, tuple)):
+        return [_json_safe(v) for v in value]
+    if isinstance(value, dict):
+        return {str(k): _json_safe(v) for k, v in value.items()}
+    return str(value)
+
+
+def export_chrome_trace(records: Iterable[Span], path: str, *,
+                        process_name: str = "byol_tpu_torch") -> int:
+    """Write spans as Chrome trace events (the ``traceEvents`` format);
+    returns the span count.  Timestamps are perf_counter microseconds;
+    one complete event (``ph: "X"``) per span, and a metadata event that
+    names the process."""
+    pid = os.getpid()
+    events: List[Dict[str, Any]] = [{
+        "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+        "args": {"name": process_name},
+    }]
+    for r in sorted(records, key=lambda r: r.t0):
+        ev: Dict[str, Any] = {
+            "name": r.name,
+            "cat": r.name.split("/", 1)[0],
+            "ph": "X",
+            "ts": r.t0 * 1e6,
+            "dur": (r.t1 - r.t0) * 1e6,
+            "pid": pid,
+            "tid": r.tid,
+        }
+        if r.attrs:
+            ev["args"] = _json_safe(r.attrs)
+        events.append(ev)
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f,
+                  allow_nan=False)
+        f.write("\n")
+    return len(events) - 1

@@ -24,6 +24,14 @@ flags it keeps.  Net-defining flags: --arch, --attn-impl, --pooling,
                           from --seed (embeddings are meaningless; compute
                           is identical), and a line says so
     --restore-best        the best-metric checkpoint, not the last
+    --serve-events PATH   the run log (run_header, serve_stats windows,
+                          run_end; the JAX event schema); default
+                          <--log-dir>/serve.jsonl
+    --serve-trace PATH    Chrome trace of the serving flight recorder
+                          (per-batch serve/batch spans with the requests'
+                          trace ids; engine stage/dispatch/readback),
+                          written at exit; default
+                          <--log-dir>/serve_trace.json, 'off' records none
 
 ``--http`` (the wire front end) and reading the JAX package's orbax
 checkpoints are later slices (ROADMAP.md).  Without --smoke the process
@@ -32,9 +40,10 @@ serves in-process until SIGTERM/SIGINT.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
-from typing import List, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
@@ -84,6 +93,17 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "prepare batch i+1 while the card computes batch i")
     s.add_argument("--stats-interval", type=float, default=10.0,
                    help="seconds between stats windows")
+    s.add_argument("--log-dir", type=str, default="./runs",
+                   help="where --serve-events and --serve-trace go by "
+                        "default")
+    s.add_argument("--serve-events", type=str, default="",
+                   help="serve_stats JSONL path (default "
+                        "<log-dir>/serve.jsonl)")
+    s.add_argument("--serve-trace", type=str, default="",
+                   help="Chrome-trace JSON written at shutdown from the "
+                        "serving flight recorder; default "
+                        "<log-dir>/serve_trace.json, 'off' disables "
+                        "recording entirely")
     s.add_argument("--smoke", type=int, default=0,
                    help="drive N synthetic requests through the service, "
                         "print stats, exit nonzero on ANY failed request")
@@ -104,6 +124,33 @@ def config_from_args(args: argparse.Namespace):
                           attn_impl=args.attn_impl, pooling=args.pooling),
         device=DeviceConfig(seed=args.seed, half=args.half),
         parity=ParityConfig(normalize_inputs=args.normalize_inputs))
+
+
+def serve_observers(events_path: str, trace: str
+                    ) -> Tuple[Any, Any, Callable[[], Optional[int]]]:
+    """-> (run log, span recorder, export): the recorder is NULL when
+    ``trace`` is 'off', and ``export()`` writes its ring to ``trace`` as a
+    Chrome trace (returning the span count; None when off or when the
+    write failed: the trace is evidence, never a reason to fail
+    shutdown)."""
+    from byol_tpu_torch.observability import spans as spans_lib
+    from byol_tpu_torch.observability.events import RunLog
+    recorder = (spans_lib.NULL if trace == "off"
+                else spans_lib.SpanRecorder())
+    events = RunLog(events_path, best_effort=True)
+
+    def export() -> Optional[int]:
+        if not recorder.enabled:
+            return None
+        try:
+            n = spans_lib.export_chrome_trace(recorder.records(), trace,
+                                              process_name="byol_serve")
+        except OSError as e:
+            print(f"serve: trace export failed ({e!r})", file=sys.stderr)
+            return None
+        print(f"serve: wrote {n} span(s) to {trace}", file=sys.stderr)
+        return n
+    return events, recorder, export
 
 
 def _smoke_rc(result, requested: int) -> int:
@@ -128,6 +175,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     import threading
 
     from byol_tpu_torch.core.preflight import resolve_device
+    from byol_tpu_torch.observability.events import run_header_env
     from byol_tpu_torch.serving.meter import serve_log_line
     from byol_tpu_torch.serving.service import ServeConfig, build_service
 
@@ -143,52 +191,75 @@ def main(argv: Optional[List[str]] = None) -> int:
         num_classes=args.num_classes,
         stats_interval_s=args.stats_interval,
         pipeline=args.pipeline)
-    try:
-        service = build_service(cfg, serve_cfg, device=device,
-                                checkpoint_dir=args.checkpoint,
-                                best=args.restore_best)
-    except (ValueError, NotImplementedError, FileNotFoundError) as e:
-        print(f"byol_tpu_torch serve: {e}", file=sys.stderr)
-        return 2
-    if not args.checkpoint:
-        print("serve: no --checkpoint given — serving a RANDOM-init encoder "
-              "from --seed (embeddings are meaningless; smoke/bench only)",
-              file=sys.stderr)
-    t0 = time.perf_counter()
-    service.start()              # warmup: every bucket runs once
-    print(f"serve: warm — {service.engine.compile_count} bucket shape(s) "
-          f"{list(service.engine.buckets.sizes)} in "
-          f"{time.perf_counter() - t0:.1f}s on {device}; accepting requests "
-          f"({service.engine.describe()})")
+    events, recorder, export_trace = serve_observers(
+        args.serve_events or os.path.join(args.log_dir, "serve.jsonl"),
+        args.serve_trace or os.path.join(args.log_dir, "serve_trace.json"))
+    with events:
+        events.emit("run_header",
+                    config={**cfg.to_dict(),
+                            "serving": {
+                                "checkpoint": args.checkpoint,
+                                "min_bucket": args.min_bucket,
+                                "max_batch": args.max_batch,
+                                "max_queue": args.max_queue,
+                                "max_wait_ms": args.max_wait_ms,
+                                "pipeline": args.pipeline}},
+                    **run_header_env(device))
+        try:
+            service = build_service(cfg, serve_cfg, device=device,
+                                    checkpoint_dir=args.checkpoint,
+                                    best=args.restore_best, events=events,
+                                    recorder=recorder)
+        except (ValueError, NotImplementedError, FileNotFoundError) as e:
+            print(f"byol_tpu_torch serve: {e}", file=sys.stderr)
+            return 2
+        if not args.checkpoint:
+            print("serve: no --checkpoint given — serving a RANDOM-init "
+                  "encoder from --seed (embeddings are meaningless; "
+                  "smoke/bench only)", file=sys.stderr)
+        t0 = time.perf_counter()
+        service.start()              # warmup: every bucket runs once
+        print(f"serve: warm — {service.engine.compile_count} bucket "
+              f"shape(s) {list(service.engine.buckets.sizes)} in "
+              f"{time.perf_counter() - t0:.1f}s on {device}; accepting "
+              f"requests ({service.engine.describe()})")
 
-    if args.smoke:
-        res = _run_smoke_inproc(service, args.smoke, args.smoke_streams,
-                                seed=cfg.device.seed)
-        # read the window BEFORE stop(): its final stats emit resets it
-        snap = service.meter.snapshot(time.perf_counter(), reset=False)
-        service.stop()
-        print(serve_log_line(snap))
-        print(res.summary(), file=sys.stderr)
-        return _smoke_rc(res, args.smoke)
+        if args.smoke:
+            res = _run_smoke_inproc(service, args.smoke, args.smoke_streams,
+                                    seed=cfg.device.seed)
+            # read the window BEFORE stop(): its final stats emit resets it
+            snap = service.meter.snapshot(time.perf_counter(), reset=False)
+            service.stop()
+            export_trace()
+            print(serve_log_line(snap))
+            print(res.summary(), file=sys.stderr)
+            events.emit("run_end", smoke_requests=res.completed,
+                        smoke_failed=res.failed,
+                        compile_count=service.engine.compile_count)
+            return _smoke_rc(res, args.smoke)
 
-    # long-running mode: the worker serves; this thread flushes stats
-    # windows until SIGTERM/SIGINT starts the drain
-    stop_signal = threading.Event()
+        # long-running mode: the worker serves; this thread flushes stats
+        # windows until SIGTERM/SIGINT starts the drain
+        stop_signal = threading.Event()
+        got = {}
 
-    def _on_signal(signum, frame):  # noqa: ARG001 — handler contract
-        stop_signal.set()
+        def _on_signal(signum, frame):  # noqa: ARG001 — handler contract
+            got["signal"] = signal.Signals(signum).name
+            stop_signal.set()
 
-    signal.signal(signal.SIGTERM, _on_signal)
-    signal.signal(signal.SIGINT, _on_signal)
-    try:
-        while not stop_signal.wait(serve_cfg.stats_interval_s):
-            service._emit_stats(force=True)
-    finally:
-        service.stop()
-        print("serve: drained — every accepted request resolved",
-              file=sys.stderr)
+        signal.signal(signal.SIGTERM, _on_signal)
+        signal.signal(signal.SIGINT, _on_signal)
+        try:
+            while not stop_signal.wait(serve_cfg.stats_interval_s):
+                service._emit_stats(force=True)
+        finally:
+            service.stop()
+            export_trace()
+            events.emit("run_end", signal=got.get("signal"),
+                        compile_count=service.engine.compile_count)
+            print("serve: drained — every accepted request resolved",
+                  file=sys.stderr)
     return 0
-
 
 if __name__ == "__main__":
     raise SystemExit(main())

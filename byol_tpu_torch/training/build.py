@@ -92,7 +92,8 @@ def step_config(rcfg: ResolvedConfig) -> StepConfig:
         fused_augment=cfg.task.fused_augment == "on",
         image_size=rcfg.input_shape[0],
         color_jitter_strength=cfg.regularizer.color_jitter_strength,
-        aug_seed=cfg.device.seed)
+        aug_seed=cfg.device.seed,
+        telemetry=cfg.device.telemetry)
 
 
 def setup_training(rcfg: ResolvedConfig, device,

@@ -44,6 +44,18 @@ statistics:
   concatenated in microbatch order (views made per microbatch), run as
   ONE batch.  It costs the big batch's memory, as in JAX.
 
+Telemetry (``telemetry`` 'epoch' | 'step'): each microbatch's forward
+also computes the collapse signature of its stop-grad target projections
+(``health.collapse_stats`` of both views' rows; under 'global' one value
+per microbatch's row chunk), mean-accumulated like the metrics; after the
+update the step packs the health vector (observability/health.py) into
+``metrics['health']``: the averaged gradient's norm, the applied update's
+(``lr |m'|``), the post-step params', the params' distance to the ticked
+target, the trust ratios the update applied (K1a's own under
+``fused_update``), the non-finite count of gradient and loss, and the
+loss.  With ``telemetry='off'`` none of it runs and ``metrics`` has
+today's five keys.
+
 lr and tau are computed on the host from the schedule count and
 ``ema_step``, the augmentation draws on the host's generator; the step
 reads nothing back from the device.  It returns the
@@ -60,6 +72,7 @@ from byol_tpu_torch.core.precision import FP32, Policy
 from byol_tpu_torch.data import device_augment
 from byol_tpu_torch.objectives.byol_loss import loss_function
 from byol_tpu_torch.objectives.metrics import cross_entropy, topk_accuracy
+from byol_tpu_torch.observability import health as health_lib
 from byol_tpu_torch.ops import fused_augment as fused_aug_lib
 from byol_tpu_torch.ops import fused_update as fused_lib
 from byol_tpu_torch.optim.factory import MOMENTUM_DECAY, LarsMomentum
@@ -91,6 +104,7 @@ class StepConfig:
     image_size: int = 0                    # view size under augment_in_step
     color_jitter_strength: float = 1.0
     aug_seed: int = 0                      # seed of the in-step draws
+    telemetry: str = "off"                 # 'off' | 'epoch' | 'step'
 
 
 def _views(view1, view2, policy: Policy, normalize: bool):
@@ -138,6 +152,9 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
         raise ValueError(f"accum_steps must be >= 1, got {scfg.accum_steps}")
     if scfg.accum_bn_mode not in ("average", "microbatch", "global"):
         raise ValueError(f"unknown accum_bn_mode {scfg.accum_bn_mode!r}")
+    if scfg.telemetry not in ("off", "epoch", "step"):
+        raise ValueError(f"unknown telemetry {scfg.telemetry!r}")
+    telemetry = scfg.telemetry != "off"
     if scfg.augment_in_step and scfg.image_size <= 0:
         raise ValueError(
             "augment_in_step requires image_size > 0 (the augment target "
@@ -211,10 +228,23 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
         total.backward()
         with torch.no_grad():
             top1, top5 = topk_accuracy(logits, cls_labels)
-        return {"loss_mean": total.detach(),
-                "byol_loss_mean": byol_loss.detach(),
-                "linear_loss_mean": cls_loss.detach(),
-                "top1_mean": top1, "top5_mean": top5}
+        metrics = {"loss_mean": total.detach(),
+                   "byol_loss_mean": byol_loss.detach(),
+                   "linear_loss_mean": cls_loss.detach(),
+                   "top1_mean": top1, "top5_mean": top5}
+        if telemetry:
+            # each microbatch's collapse signature on its own rows, as
+            # JAX's per-microbatch step computes it; the leading underscore
+            # keeps the pair out of the grapher's *_mean filter
+            with torch.no_grad():
+                stats = [health_lib.collapse_stats(torch.cat(rows))
+                         for rows in zip(tgt1["projection"].chunk(chunks),
+                                         tgt2["projection"].chunk(chunks))]
+            metrics["_collapse_feature_std"] = torch.stack(
+                [f for f, _ in stats]).mean()
+            metrics["_collapse_cosine_mean"] = torch.stack(
+                [c for _, c in stats]).mean()
+        return metrics
 
     def accumulate(state: TrainState, batch: Mapping[str, torch.Tensor]
                    ) -> Metrics:
@@ -291,10 +321,21 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
             lr = lr_schedule(state.count)
             tau = cosine_ema_decay(state.ema_step, scfg.total_train_steps,
                                    scfg.base_decay)
-            update(state, lr, tau)
+            trust = update(state, lr, tau)
             if scfg.polyak_ema > 0.0:
                 d = scfg.polyak_ema
                 state.polyak.mul_(d).add_(state.params, alpha=1.0 - d)
+            if telemetry:
+                metrics = dict(metrics)
+                collapse = (metrics.pop("_collapse_feature_std"),
+                            metrics.pop("_collapse_cosine_mean"))
+                # the update both paths apply is -lr * m'
+                metrics["health"] = health_lib.health_stats(
+                    grads=state.grads, params=state.params,
+                    target_params=state.target, loss=metrics["loss_mean"],
+                    collapse=collapse, trust_ratios=trust,
+                    update_norm=abs(lr) * health_lib.global_norm(
+                        state.momentum))
         state.count += 1
         state.step += 1
         state.ema_step += 1

@@ -30,8 +30,31 @@ to what one device needs:
 
 The metrics stay on the device during an epoch and are read back once at
 its end, after a synchronise, so the step time is the device's as well as
-the host's.  Telemetry and spans are not ported yet (ROADMAP.md, section 1
-item 13).
+the host's.
+
+Observability, as the JAX trainer wires it (observability/):
+
+- a span flight recorder (``--spans on``): ``startup/build``, the fit's
+  first step as ``startup/compile`` (cuDNN autotuning, the first kernel
+  library load, the FLOP count), later steps as ``train/dispatch``,
+  ``input/fill|wait`` from the prefetch, ``train/epoch_readback`` around
+  the synchronise and readback, ``telemetry/...``, ``eval/run`` and
+  ``checkpoint/save``; a goodput window folds at each epoch's end and the
+  run's totals at the end, and the ring goes to a Chrome trace;
+- the run log ``log_dir/<run name>/run.jsonl`` in the JAX schema:
+  ``run_header``, ``step`` records of the health vector, ``epoch`` events
+  for train, test and valid, ``checkpoint``, ``anomaly`` / ``halt`` /
+  ``state_dump``, ``goodput`` / ``span_stats`` and ``run_end``; the
+  grapher's ``metrics.jsonl`` (and TensorBoard events) beside it;
+- ``--telemetry step|epoch``: the step's health vector read back through
+  the :class:`TelemetrySink` (every ``telemetry_interval`` steps with one
+  interval of lag, or once an epoch); under ``--nan-policy halt`` a
+  non-finite gradient or loss writes ``state_dump``, the goodput totals
+  and the trace, closes the saver, and only then raises
+  :class:`NanHaltError`;
+- a watchdog (``--watchdog-timeout``) petted around every blocking
+  window, and a :class:`StepTimer` for images/s, MFU (the first step's
+  FLOPs counted by ``flops.counting``) and the step-time tail.
 """
 from __future__ import annotations
 
@@ -39,9 +62,10 @@ import contextlib
 import dataclasses
 import os
 import signal
+import sys
 import threading
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -50,8 +74,17 @@ from byol_tpu_torch.checkpoint import ModelSaver
 from byol_tpu_torch.core.config import Config, resolve, run_name
 from byol_tpu_torch.data.loader import LoaderBundle, get_loader, pad_batch
 from byol_tpu_torch.data.prefetch import prefetch_to_device
+from byol_tpu_torch.observability import flops as flops_lib
+from byol_tpu_torch.observability import goodput as goodput_lib
+from byol_tpu_torch.observability import spans as spans_lib
+from byol_tpu_torch.observability.events import RunLog, run_header_env
+from byol_tpu_torch.observability.grapher import Grapher
 from byol_tpu_torch.observability.meters import (InputPipelineMeter,
-                                                 input_log_line)
+                                                 MetricAccumulator,
+                                                 StepTimer, input_log_line)
+from byol_tpu_torch.observability.telemetry import (NanHaltError,
+                                                    TelemetrySink)
+from byol_tpu_torch.observability.watchdog import Watchdog
 from byol_tpu_torch.training.build import setup_training
 from byol_tpu_torch.training.state import (TrainState, canonical_state,
                                            load_canonical)
@@ -72,6 +105,9 @@ class FitResult:
     valid_losses: List[float] = dataclasses.field(default_factory=list)
     input_pipeline: Dict[str, float] = dataclasses.field(
         default_factory=dict)       # the last epoch's InputPipelineMeter
+    mfu: Optional[float] = None     # last epoch, on a card of known peak
+    flops_per_sample: Optional[float] = None   # the first step's count
+    anomalies: int = 0              # telemetry anomalies of the run
 
 
 def _range_check(batch, input_shape) -> None:
@@ -117,43 +153,50 @@ def _epoch_batches(loader: LoaderBundle, steps: int) -> Iterator:
         yield batch
 
 
-class _Sums:
-    """Device-side running sums of step metrics, weighted per batch."""
-
-    def __init__(self) -> None:
-        self.sums: Dict[str, torch.Tensor] = {}
-        self.weight: Optional[torch.Tensor] = None
-        self.count = 0
-
-    def update(self, metrics: Dict[str, torch.Tensor]) -> None:
-        w = metrics.get("_weight")
-        for k, v in metrics.items():
-            if k == "_weight":
-                continue
-            v = v * w if w is not None else v
-            self.sums[k] = self.sums[k] + v if k in self.sums else v
-        if w is not None:
-            self.weight = w if self.weight is None else self.weight + w
-        self.count += 1
-
-    def result(self) -> Dict[str, float]:
-        denom = (float(self.weight) if self.weight is not None
-                 else float(self.count))
-        return {k: float(v) / denom for k, v in self.sums.items()}
-
-
 def _fmt(m: Dict[str, float]) -> str:
     return (f"loss {m['loss_mean']:.4f} (byol {m['byol_loss_mean']:.4f}, "
             f"linear {m['linear_loss_mean']:.4f}) top1 {m['top1_mean']:.2f} "
             f"top5 {m['top5_mean']:.2f}")
 
 
+@dataclasses.dataclass
+class _Observers:
+    """What one fit records with: the span recorder and its goodput meter,
+    the run log (disabled, not absent, where it could not open), the
+    telemetry sink (None under ``--telemetry off``), the watchdog, the
+    grapher and the step timer."""
+
+    recorder: Any
+    goodput: goodput_lib.GoodputMeter
+    events: RunLog
+    sink: Optional[TelemetrySink]
+    watchdog: Watchdog
+    grapher: Grapher
+    timer: StepTimer
+    log_dir: str                    # log_dir/<run name>
+
+    def export_trace(self) -> None:
+        """The ring as a Chrome trace next to run.jsonl (spans on).  The
+        trace is evidence, never a reason to kill the run."""
+        if not self.recorder.enabled:
+            return
+        try:
+            spans_lib.export_chrome_trace(
+                self.recorder.records(),
+                os.path.join(self.log_dir, "trace.json"))
+        except OSError as e:
+            print(f"spans: trace export failed ({e!r}); continuing",
+                  file=sys.stderr)
+
+
 def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
+        grapher: Optional[Grapher] = None,
         verbose: bool = True) -> FitResult:
     """Train per the config on ``device``, resuming from the run's last
     checkpoint if it has one; returns the final state and the last epoch's
     metrics.  ``step_losses`` and ``test_losses`` hold what this call
-    ran."""
+    ran.  ``grapher`` defaults to ``cfg.task.grapher`` under
+    ``log_dir/<run name>``."""
     # one device: the data axis is 1 (the JAX trainer sizes it to the
     # devices it finds)
     cfg = cfg.replace(device=dataclasses.replace(cfg.device, num_replicas=1))
@@ -164,21 +207,55 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
                    output_size=loader.output_size,
                    input_shape=loader.input_shape,
                    num_valid_samples=loader.num_valid_samples)
+    recorder = (spans_lib.SpanRecorder() if cfg.device.spans == "on"
+                else spans_lib.NULL)
+    # the first goodput window opens before the model build, so startup
+    # is attributed, not lost
+    meter = goodput_lib.GoodputMeter(recorder)
+    name = run_name(cfg)
+    log_dir = os.path.join(cfg.task.log_dir, name)
+    if grapher is None:
+        grapher = Grapher(cfg.task.grapher, logdir=cfg.task.log_dir,
+                          run_name=name)
     saver = ModelSaver(
-        os.path.join(cfg.model.model_dir, run_name(cfg)),
+        os.path.join(cfg.model.model_dir, name),
         early_stop=cfg.optim.early_stop,
         burn_in_interval=int(0.1 * cfg.task.epochs),
         larger_is_better=False,
         max_early_stop_steps=10)
+    # best effort: an unopenable log directory or a full disk disables the
+    # log with a warning, never the run
+    events = RunLog(os.path.join(log_dir, "run.jsonl"), best_effort=True)
+    events.emit("run_header", config=cfg.to_dict(), **run_header_env(device),
+                run_name=name, n_devices=1,
+                steps_per_train_epoch=rcfg.steps_per_train_epoch,
+                global_batch_size=rcfg.global_batch_size)
+    sink = None
+    if cfg.device.telemetry != "off":
+        sink = TelemetrySink(cfg.device.telemetry_interval,
+                             nan_policy=cfg.device.nan_policy,
+                             events=events, verbose=verbose)
+    obs = _Observers(recorder=recorder, goodput=meter, events=events,
+                     sink=sink, watchdog=Watchdog(cfg.device.watchdog_timeout),
+                     grapher=grapher,
+                     timer=StepTimer(rcfg.global_batch_size, 1, device),
+                     log_dir=log_dir)
     try:
-        return _fit(cfg, rcfg, saver, device, loader, verbose)
+        return _fit(cfg, rcfg, saver, device, loader, verbose, obs)
     finally:
+        obs.watchdog.stop()
+        events.close()
+        grapher.close()
         saver.close()             # raises if the last write failed
 
 
 def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
-         loader: LoaderBundle, verbose: bool) -> FitResult:
-    _, state, train_step, eval_step, _ = setup_training(rcfg, device)
+         loader: LoaderBundle, verbose: bool, obs: _Observers) -> FitResult:
+    recorder, events, sink = obs.recorder, obs.events, obs.sink
+    watchdog, grapher, timer = obs.watchdog, obs.grapher, obs.timer
+    with recorder.span("startup/build"):
+        _, state, train_step, eval_step, schedule = setup_training(rcfg,
+                                                                   device)
     if verbose:
         print(f"model: {cfg.model.arch}, {state.seg.num_segments} parameter "
               f"leaves, {sum(state.seg.sizes) / 1e6:.2f}M params, "
@@ -197,16 +274,18 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
     eval_rows = rcfg.microbatch_size
 
     def run_eval(batches=None) -> Dict[str, float]:
-        sums = _Sums()
+        # the eval loop and its readback are a blocking window
+        watchdog.pet()
+        acc = MetricAccumulator()
         for batch in batches if batches is not None else loader.test_loader:
             for start in range(0, len(batch["label"]), eval_rows):
                 rows = {k: v[start:start + eval_rows]
                         for k, v in batch.items()}
-                sums.update(eval_step(state, _to_device(
+                acc.update(eval_step(state, _to_device(
                     pad_batch(rows, eval_rows), device)))
             if cfg.device.debug_step:
                 break
-        return sums.result()
+        return acc.result()
 
     if saver.stopped_early:
         # the run already stopped early (the durable marker): evaluate the
@@ -217,6 +296,8 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
         if verbose:
             print(f"run already early-stopped at best epoch "
                   f"{init_epoch - 1}; nothing to train", flush=True)
+        events.emit("run_end", epoch=init_epoch - 1, stopped_early=True,
+                    already_stopped=True)
         return FitResult(state=state, epoch=init_epoch - 1, train_metrics={},
                          test_metrics=test_metrics, step_losses=[],
                          step_ms=0.0, images_per_sec=0.0, stopped_early=True)
@@ -264,6 +345,29 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
               "exiting 143 for requeue", flush=True)
         raise SystemExit(143)
 
+    def halt_dump(err: NanHaltError) -> None:
+        """--nan-policy halt tripped: the post-mortem goes into the run log
+        (state metadata, the goodput totals, the trace) and the saver is
+        closed before the error propagates."""
+        events.emit("state_dump", step=err.step, epoch=epoch,
+                    state_step=state.step, ema_step=state.ema_step,
+                    lr=float(schedule(state.count)), reason="nonfinite",
+                    health=err.record, run_name=run_name(cfg))
+        if recorder.enabled:
+            obs.goodput.final(events=events, halted=True)
+            obs.export_trace()
+        events.close()
+        watchdog.stop()
+        saver.close()
+
+    def telemetry(span: str, call) -> None:
+        try:
+            with recorder.span(span):
+                call()
+        except NanHaltError as e:
+            halt_dump(e)
+            raise
+
     step_losses: List[float] = []
     test_losses: List[float] = []
     valid_losses: List[float] = []
@@ -272,11 +376,14 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
     valid_metrics: Dict[str, float] = {}
     step_ms = images_per_sec = 0.0
     stopped = checked = False
+    first_step = True
+    sample_batch: Dict[str, np.ndarray] = {}
 
     def tapped(skip: int) -> Iterator:
         """The epoch's batches after the ``skip`` a resume re-enters past,
-        the run's first one held to the input contract.  Runs in the
-        prefetch thread."""
+        the run's first one held to the input contract and the epoch's
+        first host views kept for the grapher.  Runs in the prefetch
+        thread."""
         nonlocal checked
         for i, batch in enumerate(
                 _epoch_batches(loader, rcfg.steps_per_train_epoch)):
@@ -285,21 +392,61 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
             if not checked:
                 _range_check(batch, rcfg.input_shape)
                 checked = True
+            if not sample_batch and isinstance(batch.get("view1"),
+                                               np.ndarray):
+                # a copy: a slice would keep the whole host batch alive
+                sample_batch.update({k: np.array(batch[k][:64])
+                                     for k in ("view1", "view2")})
             yield batch
+
+    def train_one(batch) -> Dict[str, torch.Tensor]:
+        """One optimizer step.  The fit's first carries cuDNN autotuning
+        and the first kernel-library load, so it is startup, not
+        productive time; its FLOPs are counted (MFU) as it runs."""
+        nonlocal first_step
+        if not first_step:
+            with recorder.span("train/dispatch"):
+                return train_step(state, batch)
+        first_step = False
+        with recorder.span("startup/compile"), \
+                flops_lib.counting() as counted:
+            metrics = train_step(state, batch)
+        if counted.total:
+            timer.set_flops(counted.total / batch_size,
+                            flops_lib.chip_peak_tflops(
+                                torch.cuda.get_device_name(device)
+                                if torch.device(device).type == "cuda"
+                                else "cpu"))
+        return metrics
 
     meter = InputPipelineMeter()
     try:
         for epoch in range(init_epoch, cfg.task.epochs):
             loader.set_all_epochs(epoch)
             skip = resume_skip if epoch == resume_epoch else 0
-            acc, losses = _Sums(), []
+            acc, losses = MetricAccumulator(), []
             meter = InputPipelineMeter()
-            _sync(device)
+            sample_batch.clear()
+            timer.reset_ticks()
+            watchdog.pet()
+            with recorder.span("train/epoch_readback"):
+                _sync(device)
             t0 = time.perf_counter()
             with contextlib.closing(prefetch_to_device(
-                    tapped(skip), device, meter=meter)) as batches:
+                    tapped(skip), device, meter=meter,
+                    recorder=recorder)) as batches:
                 for batch in batches:
-                    metrics = train_step(state, batch)
+                    metrics = train_one(batch)
+                    timer.tick()
+                    if sink is not None:
+                        # the health vector leaves the metrics, so the
+                        # accumulator only ever sums scalars
+                        vec = metrics.pop("health")
+                        if cfg.device.telemetry == "step":
+                            telemetry("telemetry/readback",
+                                      lambda: sink.offer(state.step, vec))
+                        else:
+                            sink.hold(state.step, vec)
                     acc.update(metrics)
                     losses.append(metrics["loss_mean"])
                     maybe_preempt_save()
@@ -312,19 +459,39 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
                                          f"{state.step} (--fault-at-step)")
                     if cfg.device.debug_step:
                         break
-            _sync(device)
-            elapsed = time.perf_counter() - t0
-            train_metrics = acc.result()
+            # the host blocks here until the card has run every step it
+            # was given: productive time, as in the JAX trainer
+            watchdog.pet()
+            with recorder.span("train/epoch_readback"):
+                _sync(device)
+                elapsed = time.perf_counter() - t0
+                train_metrics = acc.result()
+            watchdog.pet()
+            timer.record_epoch(acc.count, elapsed)
+            if sink is not None:
+                # after the synchronise: the pending and held vectors are
+                # ready, so draining them costs no wait
+                telemetry("telemetry/drain", sink.drain)
             step_losses.extend(float(x) for x in losses)
             step_ms = elapsed * 1e3 / len(losses)
             images_per_sec = batch_size * len(losses) / elapsed
             # the readback and eval windows are long: a notice landing in
             # them must not wait for the next epoch's first step
             maybe_preempt_save()
+            events.emit("epoch", epoch=epoch, split="train", step=state.step,
+                        metrics=train_metrics, seconds=round(elapsed, 3),
+                        input_pipeline=meter.result(),
+                        images_per_sec_per_chip=(
+                            timer.images_per_sec_per_chip()),
+                        **(timer.epoch_step_quantiles() or {}))
 
-            test_metrics = run_eval()
+            with recorder.span("eval/run", split="test"):
+                test_metrics = run_eval()
+            watchdog.pet()
             test_losses.append(test_metrics["loss_mean"])
             maybe_preempt_save()
+            events.emit("epoch", epoch=epoch, split="test", step=state.step,
+                        metrics=test_metrics)
             if verbose:
                 print(f"epoch {epoch}: train {_fmt(train_metrics)}, "
                       f"{len(losses)} steps, {step_ms:.1f} ms/step, "
@@ -333,16 +500,58 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
                 print(input_log_line(epoch, meter), flush=True)
             if loader.make_valid_iter is not None:
                 # early stop keys off the TEST loss, as in the JAX trainer
-                valid_metrics = run_eval(loader.valid_loader)
+                with recorder.span("eval/run", split="valid"):
+                    valid_metrics = run_eval(loader.valid_loader)
+                watchdog.pet()
                 valid_losses.append(valid_metrics["loss_mean"])
                 maybe_preempt_save()
+                grapher.register_plots(valid_metrics, epoch, prefix="valid")
+                events.emit("epoch", epoch=epoch, split="valid",
+                            step=state.step, metrics=valid_metrics)
                 if verbose:
                     print(f"epoch {epoch}: valid {_fmt(valid_metrics)}",
                           flush=True)
-            if saver(test_metrics["loss_mean"], epoch, canonical_state(state)):
+
+            grapher.register_plots(train_metrics, epoch, prefix="train")
+            grapher.register_plots(test_metrics, epoch, prefix="test")
+            grapher.add_scalar("lr_scalar", float(schedule(state.count)),
+                               epoch)
+            grapher.add_scalar("images_per_sec_per_chip",
+                               timer.images_per_sec_per_chip(), epoch)
+            for key, value in meter.result().items():
+                grapher.add_scalar(f"{key}_scalar", value, epoch)
+            epoch_mfu = timer.mfu()
+            if epoch_mfu is not None:
+                grapher.add_scalar("mfu_scalar", epoch_mfu, epoch)
+            if sample_batch:
+                grapher.register_images(
+                    {"aug1_imgs": sample_batch["view1"],
+                     "aug2_imgs": sample_batch["view2"]}, epoch,
+                    prefix="train")
+            if epoch == 2:
+                grapher.add_text("config", cfg.to_json(), epoch)
+            grapher.save()
+
+            watchdog.pet()
+            with recorder.span("checkpoint/save", epoch=epoch):
+                stop_now = saver(test_metrics["loss_mean"], epoch,
+                                 canonical_state(state))
+            watchdog.pet()
+            events.emit("checkpoint", epoch=epoch, step=state.step,
+                        metric=test_metrics["loss_mean"],
+                        best_metric=saver.best_metric,
+                        early_stop=bool(stop_now))
+            # close this epoch's wall-time window; spans off: no fold (an
+            # empty ring would put the whole epoch in host_other)
+            if recorder.enabled:
+                obs.goodput.fold(scope="epoch", epoch=epoch, mfu=epoch_mfu,
+                                 events=events, images_per_sec_per_chip=(
+                                     timer.images_per_sec_per_chip()))
+            if stop_now:
                 tree, _ = saver.restore(best=True)
                 load_canonical(state, tree)
-                test_metrics = run_eval()
+                with recorder.span("eval/run", split="test_best"):
+                    test_metrics = run_eval()
                 stopped = True
                 if verbose:
                     print(f"early stop at epoch {epoch}; restored best "
@@ -353,9 +562,21 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
             # None: the old handler was not installed from Python
             signal.signal(signal.SIGTERM, old_sigterm if old_sigterm
                           is not None else signal.SIG_DFL)
+    watchdog.stop()
+    # the run's goodput totals (what `python -m byol_tpu_torch report`
+    # renders) and the flight recorder's trace
+    if recorder.enabled:
+        obs.goodput.final(events=events, mfu=timer.mfu())
+        obs.export_trace()
+    anomalies = len(sink.anomalies) if sink is not None else 0
+    events.emit("run_end", epoch=epoch, stopped_early=stopped,
+                images_per_sec_per_chip=timer.images_per_sec_per_chip(),
+                anomalies=anomalies)
     return FitResult(state=state, epoch=epoch, train_metrics=train_metrics,
                      test_metrics=test_metrics, step_losses=step_losses,
                      step_ms=step_ms, images_per_sec=images_per_sec,
                      stopped_early=stopped, test_losses=test_losses,
                      valid_metrics=valid_metrics, valid_losses=valid_losses,
-                     input_pipeline=meter.result())
+                     input_pipeline=meter.result(), mfu=timer.mfu(),
+                     flops_per_sample=timer.flops_per_sample,
+                     anomalies=anomalies)

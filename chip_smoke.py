@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive byol_tpu_torch's serving, training, input and accumulation paths
-once on one CUDA card, and check them.
+"""Drive byol_tpu_torch's serving, training, input, accumulation and
+observability paths once on one CUDA card, and check them.
 
     python3 chip_smoke.py            # from the repository root; one card
 
@@ -84,14 +84,15 @@ Phases (any failure raises, and the script exits nonzero):
    fall), counters set to 0 before and read after each run: every loss
    finite, K1a = K1b = one launch per step, K2 none, every train batch
    with view1 != view2 in every row and both in [0, 1], the valid loss
-   once an epoch.  Then 10 timed steps of each backend (tf and native at
+   once an epoch.  Then 5 timed steps of each backend (tf and native at
    2 and 6 workers) beside the step placement's K2 path, fed by
    ``prefetch_to_device`` as the trainer is, in turns, and a
    torch.profiler breakdown of 3 steps of each (images/s, device-busy
    share, starved steps, H2D MiB per step); then ``--task image_folder``
    on a tree of 2 classes x 64 JPEGs at 256 px written with PIL (2 steps
-   under ``native``, which moves to ``tf`` where the library has no
-   libjpeg, and 2 under ``tf``), the tree removed after;
+   under ``native``, and 2 under ``tf`` where the library has libjpeg;
+   without it ``native`` moves to ``tf`` and that run covers both), the
+   tree removed after;
 8. accum — the recipe's batch through gradient accumulation: ``--task
    fake --arch resnet50 --image-size-override 224 --batch-size 4096
    --accum-steps k --accum-bn-mode average --augment-placement step
@@ -107,10 +108,33 @@ Phases (any failure raises, and the script exits nonzero):
    256 = 4 x 64 on one set of views: ``global`` against one k = 1 step in
    loss (bf16 3e-2), ``average`` against ``microbatch`` in the mean
    gradient (rtol 1e-5, cuDNN deterministic);
-9. prints the ``{"input_arms": ...}``, ``{"accum": ...}`` and
-   ``{"kernels": [...]}`` lines (launches on the accum run, the slice's
-   main path, and per path), then, last, the ``{"ok": true, "device":
-   ...}`` line.
+9. observe — the slice's main path: the accum command with ``--telemetry
+   step --telemetry-interval 1 --nan-policy halt --spans on --grapher
+   jsonl`` and a temporary ``--log-dir`` (2 optimizer steps of 4096 = k x
+   256), counters set to 0 before and read after: K1a = K1b = 1 and K2 = k
+   launches per step; its run.jsonl read back with the port's strict
+   reader must hold run_header, a step record per step, epoch, goodput,
+   span_stats and run_end; every health record finite with
+   ``nonfinite_count`` 0 and its trust min/median/max EQUAL to those of
+   the vector K1a's wrapper returned on that step; every goodput window's
+   buckets sum to its wall within 1 %; the productive share and buckets,
+   FLOPs per sample (FlopCounterMode over the first step) and MFU are
+   printed.  Then the cost of telemetry: at 4096, wall ms over 2 steps
+   and device-busy ms of 1 profiled step with telemetry 'step' at
+   interval 1, beside the accum phase's numbers, and the health vector
+   alone; at batch 64 (the training phase's config) off, epoch, step at
+   interval 1 and at 50, 10 steps each in turns and 3 profiled.  Last
+   ``--nan-policy halt`` at batch 64 under loader placement (fp32 views
+   made on the card): a NaN in view1 row 0 of step 2's batch must raise
+   NanHaltError for step 2 with ``halt``, ``state_dump`` and a goodput
+   ``final`` with ``halted`` in the log.  The serving phase (4) runs with
+   the serving CLI's run log and flight recorder: the trace's
+   ``serve/dispatch`` spans must number the batches served, and the
+   worker's time splits by its top-level spans;
+10. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
+   ``{"observe": ...}`` and ``{"kernels": [...]}`` lines (launches on the
+   observe run, the slice's main path, and per path), then, last, the
+   ``{"ok": true, "device": ...}`` line.
 """
 import json
 import math
@@ -469,7 +493,7 @@ def _device_profile(run, iters, card, what, top=10):
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    kinds, ranked, launches = {}, [], 0
+    kinds, ranked, launches, launch_api_ms = {}, [], 0, 0.0
     for evt in prof.key_averages():
         # kernels and copies only: an operator's entry repeats its kernels'
         # device time
@@ -478,15 +502,20 @@ def _device_profile(run, iters, card, what, top=10):
             kinds[_kind(evt.key)] = kinds.get(_kind(evt.key), 0.0) + ms
             ranked.append((ms, evt.key))
             launches += evt.count
+        elif "LaunchKernel" in evt.key:
+            # the host's time inside the CUDA launch API calls
+            launch_api_ms += evt.self_cpu_time_total / 1e3 / iters
     busy = sum(kinds.values())
     print(f"profile: {what}: wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms ({busy / wall_ms:.1%}) in {launches / iters:.0f} "
-          f"kernels and copies; device ms by kind "
+          f"kernels and copies, host in launch calls {launch_api_ms:.3f} "
+          f"ms; device ms by kind "
           f"{ {k: round(v, 4) for k, v in sorted(kinds.items())} } [{card}]",
           flush=True)
     for ms, name in sorted(ranked, reverse=True)[:top]:
         print(f"profile:   {ms:.4f} ms  {name[:100]}", flush=True)
-    return {"wall_ms": wall_ms, "busy_ms": busy, "kinds": kinds}
+    return {"wall_ms": wall_ms, "busy_ms": busy, "kinds": kinds,
+            "launch_api_ms": launch_api_ms}
 
 
 def profile_embed(engine, rows, card, iters=3):
@@ -633,7 +662,8 @@ def run_training(card):
     model_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         cfg = config_from_args(build_parser().parse_args(
-            TRAIN_ARGV + ["--model-dir", model_dir]))
+            TRAIN_ARGV + ["--model-dir", model_dir, "--log-dir",
+                          os.path.join(model_dir, "logs")]))
         if not cfg.device.half:
             raise AssertionError("training: the headline run is bf16")
         loader = get_loader(cfg.replace(device=dataclasses.replace(
@@ -792,6 +822,28 @@ def _states_bitwise(a, b):
                                                   b.ema_step))
 
 
+def _batch64_spans(log, result, card):
+    """Where a batch-64 step's wall time goes on the host, from the flight
+    recorder of a run's steady epoch (the last: the first carries
+    startup): the enqueue of its kernels (train/dispatch), the wait for
+    the card at the epoch's end (train/epoch_readback) and for input."""
+    from byol_tpu_torch.observability.events import read_events
+    evs = list(read_events(log))
+    stats = [e for e in evs if e["kind"] == "span_stats"][-1]["spans"]
+    good = [e for e in evs if e["kind"] == "goodput"
+            and e["scope"] == "epoch"][-1]
+    steps = stats["train/dispatch"]["count"]
+    per_step = {n: stats[n]["seconds"] * 1e3 / steps for n in (
+        "train/dispatch", "train/epoch_readback", "input/wait")
+        if n in stats}
+    print(f"checkpoint: batch 64 spans, epoch {good['epoch']}: {steps} "
+          f"steps, ms per step {dict((n, round(v, 3)) for n, v in per_step.items())}"
+          f", dispatch p50 {stats['train/dispatch']['p50_ms']:.3f} ms; the "
+          f"trainer's wall {result.step_ms:.3f} ms/step; goodput "
+          f"{good['goodput_fraction']:.1%} of the epoch's "
+          f"{good['wall_seconds']:.3f} s [{card}]", flush=True)
+
+
 def run_checkpoint(card):
     """The checkpoint path: the headline training config without
     --debug-step, 2 epochs of 8 steps, under a temporary --model-dir,
@@ -822,7 +874,8 @@ def run_checkpoint(card):
     try:
         def config(name):
             return config_from_args(build_parser().parse_args(
-                CKPT_ARGV + ["--model-dir", os.path.join(root, name)]))
+                CKPT_ARGV + ["--model-dir", os.path.join(root, name),
+                             "--log-dir", os.path.join(root, "logs")]))
 
         def run_dir(cfg):
             return os.path.join(cfg.model.model_dir, run_name(cfg))
@@ -846,6 +899,8 @@ def run_checkpoint(card):
                                  f"{len(losses1)} steps, losses {losses1}")
         if counts1 != (0, CKPT_STEPS, CKPT_STEPS, CKPT_STEPS):
             raise AssertionError(f"checkpoint: launches {counts1}")
+        _batch64_spans(os.path.join(cfg1.task.log_dir, run_name(cfg1),
+                                    "run.jsonl"), run1, card)
         store = CheckpointStore(run_dir(cfg1))
         epochs, meta = store.epochs(), store.read_meta()
         store.close()
@@ -977,7 +1032,8 @@ def run_checkpoint(card):
         serve_argv = ["--arch", "resnet50", "--image-size-override", "224",
                       "--checkpoint", run_dir(cfg1)]
         _zero_counters()
-        rc = serve_cli.main(serve_argv + ["--smoke", "24"])
+        rc = serve_cli.main(serve_argv + ["--smoke", "24", "--log-dir",
+                                          os.path.join(root, "logs")])
         served_counts = _read_counters()
         print(f"checkpoint: serve --checkpoint --smoke 24: rc {rc}, "
               f"launches {served_counts}", flush=True)
@@ -1034,7 +1090,7 @@ INPUT_SAMPLES = 256
 INPUT_VALID_SAMPLES = 344          # 86 held out by --valid-fraction 0.25
 INPUT_STEPS = 8
 INPUT_SHORT_SAMPLES = 128          # the paper spec's run: 1 epoch, 2 steps
-INPUT_TIMED = 10                   # timed steps per arm and turn
+INPUT_TIMED = 5                    # timed steps per arm and turn
 IMAGE_TREE = (2, 64, 256)          # classes, train images each, pixels
 
 
@@ -1051,7 +1107,8 @@ def _views_ok(batch):
 def _input_config(extra, model_dir):
     from byol_tpu_torch.cli import build_parser, config_from_args
     return config_from_args(build_parser().parse_args(
-        INPUT_ARGV + extra + ["--model-dir", model_dir]))
+        INPUT_ARGV + extra + ["--model-dir", model_dir, "--log-dir",
+                              os.path.join(model_dir, "logs")]))
 
 
 def _input_run(name, extra, model_dir, samples=INPUT_SAMPLES,
@@ -1266,7 +1323,11 @@ def run_input(card):
         print(f"input: image tree {IMAGE_TREE[0]} classes x "
               f"{IMAGE_TREE[1]} JPEGs at {IMAGE_TREE[2]} px written in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
-        for backend in ("native", "tf"):
+        from byol_tpu_torch.data import native_aug
+        # without libjpeg the native run IS a tf run: one run covers both
+        backends = (("native", "tf") if native_aug.has_jpeg()
+                    else ("native",))
+        for backend in backends:
             _, counts[f"input, image_folder, {backend}"] = _input_run(
                 f"--task image_folder --data-backend {backend}",
                 ["--task", "image_folder", "--data-dir", tree,
@@ -1384,7 +1445,8 @@ def run_accum(card):
         def config(micro):
             return config_from_args(build_parser().parse_args(
                 ACCUM_ARGV + ["--accum-steps", str(ACCUM_BATCH // micro),
-                              "--model-dir", model_dir]))
+                              "--model-dir", model_dir, "--log-dir",
+                              os.path.join(model_dir, "logs")]))
 
         def resolved(cfg):
             return resolve(cfg.replace(device=dataclasses.replace(
@@ -1500,14 +1562,412 @@ def run_accum(card):
     return counts, row
 
 
+def _serving_split(records, card):
+    """The serving worker's wall time over the served window, split by its
+    top-level spans (serve/batch = stage + dispatch, serve/readback) and
+    the rest (waiting for requests, coalescing)."""
+    from byol_tpu_torch.observability.goodput import span_stats
+    served = [r for r in records if r.name.startswith("serve/")]
+    top = [r for r in served if r.depth == 0]
+    wall = max(r.t1 for r in served) - min(r.t0 for r in served)
+    split = {}
+    for r in top:
+        split[r.name] = split.get(r.name, 0.0) + r.seconds
+    split["idle (no top-level span)"] = wall - sum(split.values())
+    print(f"slice: serving goodput split over {wall * 1e3:.1f} ms of the "
+          f"worker's served window: "
+          f"{ {k: f'{v * 1e3:.1f} ms ({v / wall:.1%})' for k, v in split.items()} }"
+          f" [{card}]", flush=True)
+    print(f"slice: serving span_stats "
+          f"{ {k: {f: round(x, 3) for f, x in v.items()} for k, v in span_stats(served).items()} }",
+          flush=True)
+
+
+OBSERVE_ARGV = ["--telemetry", "step", "--telemetry-interval", "1",
+                "--nan-policy", "halt", "--spans", "on", "--grapher", "jsonl"]
+# the NaN halt: loader placement, views made on the card from host draws
+HALT_ARGV = ["--task", "fake", "--arch", "resnet50", "--image-size-override",
+             "224", "--batch-size", "64", "--epochs", "1", "--fused-update",
+             "on", "--data-backend", "device"] + OBSERVE_ARGV
+HALT_AT = 2                        # the optimizer step fed the NaN batch
+OBSERVE_64 = 10                    # timed steps per telemetry arm at 64
+
+
+def _observe_main(card, micro, root):
+    """(a) The slice's main path: the accum phase's command with the
+    observability flags, counters set to 0 before and read after; its
+    run.jsonl read back strictly and checked.  -> (launch counts, row,
+    the trained state, the host batch, the loader's config)."""
+    import dataclasses
+
+    import torch
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.core.config import run_name
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.observability import health
+    from byol_tpu_torch.observability.events import read_events
+    from byol_tpu_torch.ops import fused_update as fu
+    from byol_tpu_torch.training.trainer import fit
+
+    cfg = config_from_args(build_parser().parse_args(
+        ACCUM_ARGV + OBSERVE_ARGV + [
+            "--accum-steps", str(ACCUM_BATCH // micro), "--model-dir",
+            os.path.join(root, "models"), "--log-dir",
+            os.path.join(root, "logs")]))
+    k = cfg.optim.accum_steps
+    loader = get_loader(cfg.replace(device=dataclasses.replace(
+        cfg.device, num_replicas=1)), num_fake_samples=ACCUM_SAMPLES)
+    # K1a's own trust vector of every step, as its wrapper returns it
+    returned = []
+    real = fu.fused_lars_ema_update_buffers
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        returned.append(out.clone())
+        return out
+    fu.fused_lars_ema_update_buffers = spy
+    try:
+        t0 = time.perf_counter()
+        _zero_counters()
+        result = fit(cfg, device=torch.device("cuda"), loader=loader)
+        counts = _read_counters()
+    finally:
+        fu.fused_lars_ema_update_buffers = real
+    wall = time.perf_counter() - t0
+    steps = len(result.step_losses)
+    log = os.path.join(cfg.task.log_dir, run_name(cfg), "run.jsonl")
+    evs = list(read_events(log))
+    kinds = [e["kind"] for e in evs]
+    print(f"observe: {steps} optimizer steps of {ACCUM_BATCH} = {k} x "
+          f"{micro} with {' '.join(OBSERVE_ARGV)} in {wall:.1f}s (setup "
+          f"and eval included), losses {result.step_losses}, launches "
+          f"(flash, segment_norms, fused_apply, two_view) = {counts}; "
+          f"run.jsonl kinds { {n: kinds.count(n) for n in sorted(set(kinds))} }"
+          f" [{card}]", flush=True)
+    if steps != 2 or counts != (0, steps, steps, k * steps):
+        raise AssertionError(f"observe: {steps} steps, launches {counts}")
+    need = ("run_header", "epoch", "goodput", "span_stats", "run_end")
+    if kinds.count("step") < 2 or not all(n in kinds for n in need) or \
+            (kinds[0], kinds[-1]) != ("run_header", "run_end"):
+        raise AssertionError(f"observe: run.jsonl kinds {kinds}")
+
+    # the health records: finite, ordered trust, equal to K1a's vector
+    records = [e for e in evs if e["kind"] == "step"]
+    for rec, trust in zip(records, returned):
+        h = rec["health"]
+        want = (float(trust.min()), float(health.median(trust)),
+                float(trust.max()))
+        got = (h["trust_min"], h["trust_median"], h["trust_max"])
+        finite = all(isinstance(h[f], float) and math.isfinite(h[f])
+                     for f in health.HEALTH_FIELDS)
+        print(f"observe: step {rec['step']} health "
+              f"{ {f: round(h[f], 6) for f in health.HEALTH_FIELDS} }; "
+              f"K1a's returned vector ({trust.numel()} adapted segments): "
+              f"min/median/max {want}", flush=True)
+        if not (finite and got == want and h["nonfinite_count"] == 0.0
+                and got[0] <= got[1] <= got[2]):
+            raise AssertionError(f"observe: step {rec['step']} health {h}, "
+                                 f"K1a's trust {want}")
+    if len(returned) != steps or len(records) != steps:
+        raise AssertionError(f"observe: {len(records)} step records for "
+                             f"{len(returned)} updates")
+
+    # the goodput partition: every window sums to its wall within 1 %
+    goodputs = [e for e in evs if e["kind"] == "goodput"]
+    for g in goodputs:
+        total = g["productive_seconds"] + sum(g["badput"].values())
+        if abs(total - g["wall_seconds"]) > 0.01 * g["wall_seconds"]:
+            raise AssertionError(f"observe: goodput {g}")
+    run = goodputs[-1]
+    share = run["productive_seconds"] / run["wall_seconds"]
+    print(f"observe: goodput over the run: wall {run['wall_seconds']:.3f} "
+          f"s, productive {run['productive_seconds']:.3f} s ({share:.1%}); "
+          f"badput { {b: round(v, 3) for b, v in run['badput'].items()} } "
+          f"[{card}]", flush=True)
+    stats = next(e for e in evs if e["kind"] == "span_stats")["spans"]
+    print(f"observe: epoch 0 span_stats "
+          f"{ {n: (v['count'], round(v['seconds'], 3)) for n, v in stats.items()} }",
+          flush=True)
+    fps = result.flops_per_sample
+    print(f"observe: FLOPs per sample {fps:.4e} (FlopCounterMode over the "
+          f"first optimizer step; the hand kernels count 0), MFU "
+          f"{result.mfu} at {result.images_per_sec:.1f} img/s end to end "
+          f"(epoch wall, eval excluded) [{card}]", flush=True)
+    if not (fps and result.mfu and 0.0 < result.mfu < 1.0):
+        raise AssertionError(f"observe: FLOPs {fps}, MFU {result.mfu}")
+    row = {"microbatch": micro, "k": k, "steps": steps,
+           "wall_s": wall, "goodput_fraction": share,
+           "productive_s": run["productive_seconds"],
+           "run_wall_s": run["wall_seconds"], "badput_s": run["badput"],
+           "flops_per_sample": fps, "mfu": result.mfu,
+           "images_per_sec": result.images_per_sec,
+           "step_ms": result.step_ms}
+    return counts, row, result.state, next(iter(loader.train_loader)), cfg
+
+
+def _telemetry_cost_4096(card, state, host, cfg, accum_row, row):
+    """(b) at 4096: wall ms per optimizer step over 2 steps and device-busy
+    ms of 1 profiled step with telemetry 'step' at interval 1 (the offer
+    in the loop), beside the accum phase's numbers with it off; and the
+    health vector alone."""
+    import dataclasses
+
+    import torch
+    from byol_tpu_torch.core.config import resolve
+    from byol_tpu_torch.core.precision import get_policy
+    from byol_tpu_torch.observability import flops, health
+    from byol_tpu_torch.observability.telemetry import TelemetrySink
+    from byol_tpu_torch.training.build import build_tx, step_config
+    from byol_tpu_torch.training.steps import make_train_step
+    from byol_tpu_torch.training.trainer import _to_device
+
+    rcfg = resolve(cfg.replace(device=dataclasses.replace(
+        cfg.device, num_replicas=1)), num_train_samples=ACCUM_SAMPLES,
+        num_test_samples=ACCUM_SAMPLES // 4, output_size=10,
+        input_shape=(224, 224, 3))
+    tx, schedule = build_tx(rcfg)
+    scfg = step_config(rcfg)
+    step = make_train_step(tx, scfg, schedule, get_policy(cfg.device.half))
+    sink = TelemetrySink(1, verbose=False)
+    big = _to_device(host, "cuda")
+
+    def observed():
+        sink.offer(state.step + 1, step(state, big)["health"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        observed()
+    torch.cuda.synchronize()
+    sink.drain()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    prof = _device_profile(observed, 1, card,
+                           f"resnet50 optimizer step of {ACCUM_BATCH} with "
+                           "telemetry step, interval 1, per step", top=0)
+    sink.drain()
+    # the health vector alone on this state's buffers (eager, CUDA events)
+    trust = torch.ones(sum(state.seg.adapted), device="cuda")
+    collapse = (torch.ones((), device="cuda"), torch.zeros((), device="cuda"))
+    loss = torch.ones((), device="cuda")
+    health_ms = _time_ms(lambda: health.health_stats(
+        grads=state.grads, params=state.params, target_params=state.target,
+        loss=loss, collapse=collapse, trust_ratios=trust,
+        update_norm=0.1 * health.global_norm(state.momentum)))
+    bound_ms = 5 * state.params.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    # MFU at the steady step rate (the fit's own counts its first step,
+    # which runs under the FLOP counter)
+    steady = flops.mfu(ACCUM_BATCH / accum_row["wall_ms"] * 1e3,
+                       row["flops_per_sample"], flops.chip_peak_tflops())
+    row.update(telemetry_wall_ms=wall_ms, telemetry_busy_ms=prof["busy_ms"],
+               off_wall_ms=accum_row["wall_ms"],
+               off_busy_ms=accum_row["busy_ms"], health_ms=health_ms,
+               health_bound_ms=bound_ms, mfu_steady=steady)
+    print(f"observe: MFU at the accum phase's steady "
+          f"{ACCUM_BATCH / accum_row['wall_ms'] * 1e3:.1f} img/s: {steady} "
+          f"({row['flops_per_sample'] / 1e9:.2f} GFLOP a sample against "
+          f"{flops.chip_peak_tflops()} TFLOP/s dense BF16) [{card}]",
+          flush=True)
+    print(f"observe: telemetry cost at {ACCUM_BATCH}: wall {wall_ms:.1f} "
+          f"ms/step (2 steps) vs {accum_row['wall_ms']:.1f} off (the accum "
+          f"phase), device busy {prof['busy_ms']:.1f} vs "
+          f"{accum_row['busy_ms']:.1f} ms (1 profiled step each: "
+          f"{prof['busy_ms'] - accum_row['busy_ms']:+.1f} ms); the health "
+          f"vector alone {health_ms:.4f} ms eager over "
+          f"{state.params.numel() * 4 / 1e6:.1f} MB buffers (5 buffer reads "
+          f"at 3.35 TB/s: {bound_ms:.4f} ms) [{card}]", flush=True)
+
+
+def _telemetry_cost_64(card):
+    """(b) at batch 64 (the training phase's configuration): wall and
+    device-busy ms per step with telemetry off, epoch, step at interval 1
+    and step at interval 50, in turns, from one fresh state."""
+    import dataclasses
+
+    import torch
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.core.config import resolve
+    from byol_tpu_torch.core.precision import get_policy
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.observability.telemetry import TelemetrySink
+    from byol_tpu_torch.training.build import (build_tx, setup_training,
+                                               step_config)
+    from byol_tpu_torch.training.steps import make_train_step
+    from byol_tpu_torch.training.trainer import _to_device
+
+    cfg = config_from_args(build_parser().parse_args(TRAIN_ARGV))
+    cfg = cfg.replace(device=dataclasses.replace(cfg.device, num_replicas=1))
+    loader = get_loader(cfg, num_fake_samples=64)
+    rcfg = resolve(cfg, num_train_samples=loader.num_train_samples,
+                   num_test_samples=loader.num_test_samples,
+                   output_size=loader.output_size,
+                   input_shape=loader.input_shape)
+    _, state, _, _, _ = setup_training(rcfg, "cuda")
+    tx, schedule = build_tx(rcfg)
+    policy = get_policy(cfg.device.half)
+    batch = _to_device(next(iter(loader.train_loader)), "cuda")
+
+    def arm(mode, interval):
+        step = make_train_step(tx, dataclasses.replace(
+            step_config(rcfg), telemetry=mode), schedule, policy)
+        sink = TelemetrySink(interval, verbose=False)
+
+        def one():
+            m = step(state, batch)
+            if mode == "step":
+                sink.offer(state.step, m["health"])
+            elif mode == "epoch":
+                sink.hold(state.step, m["health"])
+        return one, sink
+    arms = {"off": arm("off", 1), "epoch": arm("epoch", 1),
+            "step, interval 1": arm("step", 1),
+            "step, interval 50": arm("step", 50)}
+    walls = {name: [] for name in arms}
+    for name in list(arms) + list(arms)[::-1]:
+        one, sink = arms[name]
+        for _ in range(2):
+            one()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OBSERVE_64):
+            one()
+        torch.cuda.synchronize()
+        sink.drain()                       # the epoch boundary's readback
+        walls[name].append((time.perf_counter() - t0) * 1e3 / OBSERVE_64)
+    rows = {}
+    for name, (one, sink) in arms.items():
+        prof = _device_profile(one, 3, card, f"resnet50 train step, batch "
+                               f"64, telemetry {name}, per step", top=0)
+        sink.drain()
+        rows[name] = {"wall_ms": walls[name], "busy_ms": prof["busy_ms"],
+                      "profiled_wall_ms": prof["wall_ms"],
+                      "launch_api_ms": prof["launch_api_ms"]}
+    # which calls of one step make the host wait for the card (CUDA's
+    # sync debug mode names each synchronising operation's caller)
+    import warnings
+    from collections import Counter
+    one, _ = arms["off"]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            one()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = Counter(f"{os.path.relpath(w.filename)}:{w.lineno}"
+                    for w in caught if "synchroniz" in str(w.message))
+    print(f"observe: batch 64, one step's synchronising calls "
+          f"{dict(sites)} [{card}]", flush=True)
+    off = rows["off"]
+    for name, r in rows.items():
+        print(f"observe: batch 64, telemetry {name}: wall "
+              f"{r['wall_ms'][0]:.3f} / {r['wall_ms'][1]:.3f} ms/step "
+              f"({OBSERVE_64} steps each, in turns), device busy "
+              f"{r['busy_ms']:.3f} ms ({r['busy_ms'] - off['busy_ms']:+.3f}"
+              f" vs off) [{card}]", flush=True)
+    return rows
+
+
+def _nan_halt(card, root):
+    """(c) --nan-policy halt on the card: batch 64, loader placement,
+    fp32 views, a NaN in view1 row 0 of the batch of step HALT_AT."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.core.config import run_name
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.observability.events import read_events
+    from byol_tpu_torch.observability.telemetry import NanHaltError
+    from byol_tpu_torch.training.trainer import fit
+
+    cfg = config_from_args(build_parser().parse_args(HALT_ARGV + [
+        "--model-dir", os.path.join(root, "halt_models"), "--log-dir",
+        os.path.join(root, "halt_logs")]))
+    loader = get_loader(cfg.replace(device=dataclasses.replace(
+        cfg.device, num_replicas=1)), num_fake_samples=256, device="cuda")
+
+    def poisoned(epoch, _base=loader.make_train_iter):
+        for i, batch in enumerate(_base(epoch)):
+            if i == HALT_AT - 1:
+                v = batch["view1"]
+                v = v.clone() if torch.is_tensor(v) else np.array(v)
+                v[0, 0, 0, 0] = float("nan")   # passes the range check
+                batch = dict(batch, view1=v)
+            yield batch
+    loader = dataclasses.replace(loader, make_train_iter=poisoned)
+    _zero_counters()
+    try:
+        fit(cfg, device=torch.device("cuda"), loader=loader)
+        halted = None
+    except NanHaltError as e:
+        halted = e
+    counts = _read_counters()
+    evs = list(read_events(os.path.join(cfg.task.log_dir, run_name(cfg),
+                                        "run.jsonl")))
+    kinds = [e["kind"] for e in evs]
+    final = [e for e in evs if e["kind"] == "goodput"][-1:]
+    dump = next((e for e in evs if e["kind"] == "state_dump"), {})
+    print(f"observe: NaN in view1 row 0 at step {HALT_AT}: raised "
+          f"{type(halted).__name__} at step "
+          f"{getattr(halted, 'step', None)}; run.jsonl kinds {kinds}; "
+          f"state_dump {dict((k, dump.get(k)) for k in ('step', 'state_step', 'lr', 'reason'))}; "
+          f"launches {counts} [{card}]", flush=True)
+    if halted is None or halted.step != HALT_AT:
+        raise AssertionError("observe: the NaN batch did not halt the run")
+    if not ("halt" in kinds and "state_dump" in kinds and final
+            and final[0]["scope"] == "run" and final[0].get("halted")):
+        raise AssertionError(f"observe: halt events {kinds}")
+
+
+def run_observe(card, micro, accum_row):
+    """The observe phase: (a) the main path with telemetry, spans, goodput
+    and MFU; (b) the cost of telemetry at 4096 and at 64; (c) the NaN
+    halt.  The serving trace (d) rides the serving phase.  Its run logs
+    live under a temporary directory, removed after."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    root = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    try:
+        counts, row, state, host, cfg = _observe_main(card, micro, root)
+        _telemetry_cost_4096(card, state, host, cfg, accum_row, row)
+        del state, host
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["batch_64"] = _telemetry_cost_64(card)
+        torch.cuda.empty_cache()
+        _nan_halt(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts, row
+
+
 def run_slice(card):
-    """The main path: serve ViT-B/16 through build_service on the card."""
+    """The main path: serve ViT-B/16 through build_service on the card,
+    with the serving CLI's run log (--serve-events) and flight recorder
+    (--serve-trace) under a temporary directory, removed after."""
+    import shutil
+    import tempfile
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        return _run_slice(card, log_dir)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
+def _run_slice(card, log_dir):
     import numpy as np
     import torch
     from byol_tpu_torch.core.config import (Config, DeviceConfig,
                                             ModelConfig, TaskConfig)
     from byol_tpu_torch.models.layers import store_in_compute_dtype
+    from byol_tpu_torch.observability.events import (read_events,
+                                                     run_header_env)
     from byol_tpu_torch.ops import flash_attention as fa
+    from byol_tpu_torch.serving.cli import serve_observers
     from byol_tpu_torch.serving.net.loadgen import run_closed_loop
     from byol_tpu_torch.serving.service import (ServeConfig, _serving_rcfg,
                                                 build_service)
@@ -1517,9 +1977,13 @@ def run_slice(card):
     cfg = Config(task=TaskConfig(image_size_override=224),
                  model=ModelConfig(arch="vit_b16", attn_impl="flash"),
                  device=DeviceConfig(half=True, seed=0))
+    events_path = os.path.join(log_dir, "serve.jsonl")
+    trace_path = os.path.join(log_dir, "serve_trace.json")
+    events, recorder, export_trace = serve_observers(events_path, trace_path)
+    events.emit("run_header", config=cfg.to_dict(), **run_header_env("cuda"))
     t0 = time.perf_counter()
     service = build_service(cfg, ServeConfig(min_bucket=8, max_bucket=64),
-                            device="cuda")
+                            device="cuda", events=events, recorder=recorder)
     service.start()
     warm = service.engine.compile_count
     print(f"slice: vit_b16 built and warmed in "
@@ -1541,11 +2005,19 @@ def run_slice(card):
         raise AssertionError("slice: serving launched a K1 or K2 kernel")
     batches = service.meter.total_batches - batches0
     snap = service.meter.snapshot(time.perf_counter(), reset=False)
+    # the served window's trace, as the CLI writes it at exit
+    n_spans = export_trace()
+    with open(trace_path) as f:
+        dispatch_spans = sum(e.get("name") == "serve/dispatch"
+                             for e in json.load(f)["traceEvents"])
+    _serving_split(recorder.records(), card)
     print(f"slice: {res.summary()} [{card}]", flush=True)
     print(f"slice: served p50 {snap['p50_ms']:.3f} ms, p99 "
           f"{snap['p99_ms']:.3f} ms, {snap['rows_per_sec']:.1f} img/s over "
           f"{batches} batches (fill {snap['fill_ratio']:.3f}) [{card}]",
           flush=True)
+    print(f"slice: --serve-trace: {n_spans} spans, serve/dispatch "
+          f"{dispatch_spans} for {batches} batches served", flush=True)
     if not res.ok:
         raise AssertionError(f"slice: {res.summary()}")
     if service.engine.compile_count != warm:
@@ -1554,6 +2026,9 @@ def run_slice(card):
     if batches < 1 or launches != 12 * batches:
         raise AssertionError(f"slice: flash_attention launched {launches} "
                              f"times for {batches} batches (want 12 each)")
+    if dispatch_spans != batches:
+        raise AssertionError(f"slice: {dispatch_spans} serve/dispatch spans "
+                             f"for {batches} batches")
     print(f"slice: flash_attention launches {launches} = 12 x {batches} "
           "batches", flush=True)
 
@@ -1574,6 +2049,15 @@ def run_slice(card):
     rows8 = np.random.RandomState(2).rand(8, 224, 224, 3).astype(np.float32)
     got = service.engine.embed(rows8)
     service.stop()
+    events.emit("run_end", smoke_requests=res.completed,
+                smoke_failed=res.failed,
+                compile_count=service.engine.compile_count)
+    events.close()
+    kinds = [e["kind"] for e in read_events(events_path)]
+    print(f"slice: --serve-events: {kinds}", flush=True)
+    if (kinds[0], kinds[-1]) != ("run_header", "run_end") or \
+            "serve_stats" not in kinds:
+        raise AssertionError(f"slice: serve events {kinds}")
     dense_cfg = cfg.replace(model=ModelConfig(arch="vit_b16",
                                               attn_impl="dense"))
     dense_net = store_in_compute_dtype(
@@ -1616,19 +2100,28 @@ def main() -> int:
                     or "spill" in line):
                 print(f"build: {line.strip()[:160]}", flush=True)
 
-    flash_rows = check_flash(card)
-    k1_rows = check_fused_update(card)
-    k2_rows = check_two_view(card)
-    k2_pass_sweeps(card)
-    launches = run_slice(card)
-    torch.cuda.empty_cache()
-    train_counts = run_training(card)
-    torch.cuda.empty_cache()
-    ckpt_counts, resumed_counts = run_checkpoint(card)
-    torch.cuda.empty_cache()
-    input_counts, input_rows = run_input(card)
-    torch.cuda.empty_cache()
-    accum_counts, accum_row = run_accum(card)
+    phases = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        phases[name] = round(time.perf_counter() - t, 1)
+        print(f"phase {name}: {phases[name]} s", flush=True)
+        return out
+    flash_rows = phase("flash", check_flash, card)
+    k1_rows = phase("fused_update", check_fused_update, card)
+    k2_rows = phase("two_view", check_two_view, card)
+    phase("two_view passes", k2_pass_sweeps, card)
+    launches = phase("serving", run_slice, card)
+    train_counts = phase("training", run_training, card)
+    ckpt_counts, resumed_counts = phase("checkpoint", run_checkpoint, card)
+    input_counts, input_rows = phase("input", run_input, card)
+    accum_counts, accum_row = phase("accum", run_accum, card)
+    observe_counts, observe_row = phase(
+        "observe", run_observe, card, accum_row["microbatch"], accum_row)
+    print(f"phases, s: {phases}; total since start "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     main_row = next(r for r in flash_rows
                     if r["shape"] == [64, HEADS, SEQ, 64]
@@ -1651,9 +2144,10 @@ def main() -> int:
     }]
 
     def by_path(i):
-        """A kernel's launches on each training path: the accum phase's
+        """A kernel's launches on each training path: the observe phase's
         run is this slice's main path."""
-        paths = {"accum": accum_counts[i], "training": train_counts[i],
+        paths = {"observe": observe_counts[i], "accum": accum_counts[i],
+                 "training": train_counts[i],
                  "checkpoint, uninterrupted": ckpt_counts[i],
                  "checkpoint, relaunch after SIGTERM": resumed_counts[i]}
         paths.update({name: c[i] for name, c in input_counts.items()})
@@ -1665,7 +2159,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "byol_tpu_torch/ops/csrc/fused_update.cu",
             "replaces": f"byol_tpu/ops/fused_update.py:{line}",
-            "launches": accum_counts[i], "launches_by_path": by_path(i),
+            "launches": observe_counts[i], "launches_by_path": by_path(i),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1676,7 +2170,7 @@ def main() -> int:
         "name": "two_view", "route": "cuda",
         "source": "byol_tpu_torch/ops/csrc/fused_augment.cu",
         "replaces": "byol_tpu/ops/fused_augment.py:179",
-        "launches": accum_counts[3], "launches_by_path": by_path(3),
+        "launches": observe_counts[3], "launches_by_path": by_path(3),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -1685,6 +2179,7 @@ def main() -> int:
         "ok": all(r["ok"] for r in k2_rows)})
     print(json.dumps({"input_arms": input_rows}), flush=True)
     print(json.dumps({"accum": accum_row}), flush=True)
+    print(json.dumps({"observe": observe_row}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -235,7 +235,8 @@ def _fit_cfg(model_dir):
         task=torch_config.TaskConfig(task="fake", batch_size=8, epochs=2,
                                      image_size_override=16,
                                      data_backend="native",
-                                     valid_fraction=0.25),
+                                     valid_fraction=0.25, grapher="jsonl",
+                                     log_dir=str(model_dir / "logs")),
         model=torch_config.ModelConfig(arch="resnet18", head_latent_size=32,
                                        projection_size=16,
                                        model_dir=str(model_dir)),

@@ -116,11 +116,11 @@ def test_compile_count_stays_after_warmup(tiny_arch, variables):
     assert svc.meter.total_requests == 5
 
 
-def test_cli_smoke_on_cpu():
+def test_cli_smoke_on_cpu(tmp_path):
     assert serve_main(["--no-cuda", "--arch", "vit_s16", "--attn-impl",
                        "flash", "--image-size-override", "32", "--no-half",
                        "--smoke", "8", "--smoke-streams", "2",
-                       "--max-batch", "8"]) == 0
+                       "--max-batch", "8", "--log-dir", str(tmp_path)]) == 0
 
 
 def test_cli_without_a_card_fails_loudly(capsys):
@@ -133,8 +133,8 @@ def test_cli_without_a_card_fails_loudly(capsys):
     assert "--no-cuda" in capsys.readouterr().err
 
 
-def test_cli_refuses_unported_arch(capsys):
+def test_cli_refuses_unported_arch(capsys, tmp_path):
     # every arch of the JAX registry is ported now; one outside it is not
     assert serve_main(["--no-cuda", "--smoke", "1", "--arch",
-                       "alexnet"]) != 0
+                       "alexnet", "--log-dir", str(tmp_path)]) != 0
     assert "unknown arch" in capsys.readouterr().err

@@ -273,7 +273,7 @@ def test_resolve_matches_jax(batch, replicas, samples, epochs):
 
 @pytest.mark.parametrize("overrides", [
     dict(device=dict(zero1="on")), dict(device=dict(flat_resident="on")),
-    dict(device=dict(telemetry="epoch")), dict(model=dict(remat=True)),
+    dict(model=dict(remat_policy="dots")), dict(model=dict(remat=True)),
     dict(device=dict(sequence_parallel=2)),
     dict(device=dict(model_parallel=2))])
 def test_resolve_refuses_what_is_not_ported(overrides):

@@ -33,7 +33,8 @@ def _cfg(model_dir, **device):
     return Config(
         task=TaskConfig(task="fake", batch_size=8, epochs=2,
                         image_size_override=16, augment_placement="step",
-                        fused_augment="on"),
+                        fused_augment="on", grapher="jsonl",
+                        log_dir=os.path.join(str(model_dir), "logs")),
         model=ModelConfig(arch="resnet18", head_latent_size=32,
                           projection_size=16, model_dir=str(model_dir)),
         optim=OptimConfig(lr=0.05, warmup=1, fused_update="on"),
@@ -166,7 +167,8 @@ def test_cli_exits_143_on_sigterm(tmp_path):
            "fake", "--arch", "resnet18", "--image-size-override", "16",
            "--batch-size", "8", "--epochs", "1000", "--debug-step",
            "--no-half", "--warmup", "0", "--head-latent-size", "32",
-           "--projection-size", "16", "--model-dir", str(tmp_path)]
+           "--projection-size", "16", "--model-dir", str(tmp_path / "m"),
+           "--log-dir", str(tmp_path / "logs"), "--grapher", "jsonl"]
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env,
                             cwd=str(tmp_path))
@@ -183,8 +185,8 @@ def test_cli_exits_143_on_sigterm(tmp_path):
             proc.wait(timeout=60)
     assert rc == 143, out
     assert "SIGTERM: checkpointed epoch" in out
-    (run,) = os.listdir(tmp_path)
-    assert CheckpointStore(str(tmp_path / run)).epochs()
+    (run,) = os.listdir(tmp_path / "m")
+    assert CheckpointStore(str(tmp_path / "m" / run)).epochs()
 
 
 SERVE_FLAGS = ["--arch", "resnet18", "--image-size-override", "16",
@@ -193,7 +195,7 @@ SERVE_FLAGS = ["--arch", "resnet18", "--image-size-override", "16",
 
 
 def test_serve_from_checkpoint_matches_the_trained_state(uninterrupted,
-                                                         capsys):
+                                                         capsys, tmp_path):
     """``serve --no-cuda --checkpoint``: the served embeddings are the
     trained state's frozen representations (fp32, 1e-5), the CLI's smoke
     passes, and it does not say it serves random weights."""
@@ -203,7 +205,8 @@ def test_serve_from_checkpoint_matches_the_trained_state(uninterrupted,
     cfg, full = uninterrupted
     assert serve_cli.main(["--no-cuda", "--checkpoint", _run_dir(cfg),
                            "--smoke", "8", "--smoke-streams", "2",
-                           "--max-batch", "8"] + SERVE_FLAGS) == 0
+                           "--max-batch", "8", "--log-dir", str(tmp_path)]
+                          + SERVE_FLAGS) == 0
     assert "RANDOM" not in capsys.readouterr().err
     serve_cfg = serve_cli.config_from_args(
         serve_cli.build_serve_parser().parse_args(SERVE_FLAGS))
