@@ -19,6 +19,11 @@ grapher's ``metrics.jsonl``; ``python -m byol_tpu_torch report
 <run.jsonl>`` renders its goodput waterfall.  ``--telemetry step|epoch``
 adds the health records, and ``--nan-policy halt`` stops the run at a
 non-finite gradient or loss with a ``state_dump`` in the log.
+
+``--linear-eval`` runs the offline linear-evaluation protocol after
+training (training/linear_eval.py: the frozen encoder's features of the
+train and test splits, a fresh linear probe, top-1/5), on the loader the
+run trained from, and prints JAX's ``linear_eval(offline):`` line.
 """
 from __future__ import annotations
 
@@ -160,6 +165,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--watchdog-timeout", type=float, default=0.0,
                    help="seconds without progress before dumping all "
                         "thread stacks and exiting (0 = off)")
+    p.add_argument("--linear-eval", action="store_true",
+                   help="after training, run the OFFLINE linear-evaluation "
+                        "protocol (frozen encoder + fresh probe: the BYOL "
+                        "paper's metric)")
     p.add_argument("--half", action="store_true", default=True,
                    help="bf16 compute (the default)")
     p.add_argument("--no-half", dest="half", action="store_false")
@@ -218,11 +227,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"byol_tpu_torch: {e}", file=sys.stderr)
         return 2
     cfg = config_from_args(args)
+    from byol_tpu_torch.data.loader import get_loader
     from byol_tpu_torch.training.trainer import fit
     # SystemExit (143 after a SIGTERM checkpoint, or --fault-at-step) is
     # not caught here: it is the process's exit
     try:
-        result = fit(cfg, device=device)
+        # one loader serves both training and the optional linear eval:
+        # at ImageNet scale building it twice doubles the startup scan
+        loader = get_loader(cfg, device=device)
+        result = fit(cfg, device=device, loader=loader)
     except (ValueError, NotImplementedError) as e:
         print(f"byol_tpu_torch: {e}", file=sys.stderr)
         return 2
@@ -230,4 +243,16 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"{result.test_metrics.get('loss_mean', float('nan')):.4f}, "
           f"{result.step_ms:.1f} ms/step, {result.images_per_sec:.1f} img/s "
           f"on {device}", flush=True)
+    if args.linear_eval:
+        from byol_tpu_torch.observability.watchdog import Watchdog
+        from byol_tpu_torch.training.linear_eval import \
+            run_linear_eval_from_cfg
+        # the trainer's watchdog stopped with fit(); the extraction's
+        # readbacks are blocking windows of their own
+        with Watchdog(cfg.device.watchdog_timeout) as wd:
+            le = run_linear_eval_from_cfg(cfg, result.state, loader=loader,
+                                          seed=cfg.device.seed, watchdog=wd)
+        print(f"linear_eval(offline): top1 {le.top1:.2f} "
+              f"top5 {le.top5:.2f} (train acc {le.train_acc:.2f}, "
+              f"{le.num_train} train / {le.num_test} test)", flush=True)
     return 0

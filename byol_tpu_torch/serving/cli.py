@@ -10,9 +10,23 @@ flags it keeps.  Net-defining flags: --arch, --attn-impl, --pooling,
     --max-wait-ms         coalescing flush deadline
     --pipeline off|on     worker dispatch pipelining (on)
     --stats-interval      seconds between stats windows
+    --http HOST:PORT      the wire front end (serving/net/): POST
+                          /v1/embed + GET /healthz /readyz /statsz,
+                          X-Deadline-Ms admission budgets, 429/503
+                          backpressure, graceful drain on SIGTERM.  Port 0
+                          binds an ephemeral port; the bound address is
+                          printed.  Empty = in-process only
+    --http-deadline-ms    default per-request budget when the client
+                          sends no X-Deadline-Ms
+    --drain-grace-s       seconds /readyz answers 503 BEFORE in-flight
+                          waiting begins: the window a load balancer's
+                          readiness prober needs to evict this replica
     --smoke N             drive N synthetic requests from --smoke-streams
                           closed-loop client threads, print the stats line,
-                          and exit NONZERO when any request fails
+                          and exit NONZERO when any request fails — over
+                          the WIRE (one EmbedClient per stream, with the
+                          readiness and drain assertions) when --http is
+                          given, in-process otherwise
     --no-cuda             run on the CPU; without it a machine with no card
                           exits nonzero (there is no silent CPU fallback)
 
@@ -33,9 +47,11 @@ flags it keeps.  Net-defining flags: --arch, --attn-impl, --pooling,
                           written at exit; default
                           <--log-dir>/serve_trace.json, 'off' records none
 
-``--http`` (the wire front end) and reading the JAX package's orbax
-checkpoints are later slices (ROADMAP.md).  Without --smoke the process
-serves in-process until SIGTERM/SIGINT.
+Reading the JAX package's orbax checkpoints is a later slice (ROADMAP.md).
+Without --smoke the process serves until SIGTERM/SIGINT, then drains:
+/readyz flips to 503 at once, --drain-grace-s elapses, accepted requests
+complete, the listener closes, and the service stops — every accepted
+request resolves before exit.
 """
 from __future__ import annotations
 
@@ -91,6 +107,18 @@ def build_serve_parser() -> argparse.ArgumentParser:
     s.add_argument("--pipeline", choices=("off", "on"), default="on",
                    help="worker dispatch pipelining: 'on' lets the host "
                         "prepare batch i+1 while the card computes batch i")
+    s.add_argument("--http", type=str, default="",
+                   help="bind the wire front end at HOST:PORT (POST "
+                        "/v1/embed, GET /healthz|/readyz|/statsz); port 0 "
+                        "binds an ephemeral port; empty = in-process "
+                        "submit() only")
+    s.add_argument("--http-deadline-ms", type=float, default=30_000.0,
+                   help="default admission budget for requests without "
+                        "an X-Deadline-Ms header")
+    s.add_argument("--drain-grace-s", type=float, default=0.5,
+                   help="seconds /readyz serves 503 before the drain "
+                        "waits out in-flight requests (load-balancer "
+                        "eviction window)")
     s.add_argument("--stats-interval", type=float, default=10.0,
                    help="seconds between stats windows")
     s.add_argument("--log-dir", type=str, default="./runs",
@@ -105,8 +133,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "<log-dir>/serve_trace.json, 'off' disables "
                         "recording entirely")
     s.add_argument("--smoke", type=int, default=0,
-                   help="drive N synthetic requests through the service, "
-                        "print stats, exit nonzero on ANY failed request")
+                   help="drive N synthetic requests through the service "
+                        "(over the wire when --http is given), print "
+                        "stats, exit nonzero on ANY failed request")
     s.add_argument("--smoke-streams", type=int, default=4,
                    help="concurrent client threads for --smoke")
     return p
@@ -169,6 +198,61 @@ def _run_smoke_inproc(service, n_requests: int, n_streams: int, *,
         service.engine.input_shape, n_requests, n_streams, seed=seed)
 
 
+def _run_smoke_wire(server, n_requests: int, n_streams: int, *,
+                    seed: int = 0, deadline_ms: float = 30_000.0):
+    """Closed-loop smoke OVER THE WIRE: one connection-reusing client per
+    stream, every request carrying an explicit deadline."""
+    from byol_tpu_torch.serving.net.client import EmbedClient
+    from byol_tpu_torch.serving.net.loadgen import run_closed_loop
+
+    host, port = server.address
+    clients = {}
+
+    def setup(idx: int) -> None:
+        clients[idx] = EmbedClient(host, port,
+                                   timeout_s=deadline_ms / 1e3 + 5.0,
+                                   seed=seed + idx)
+
+    def embed(idx: int, img) -> None:
+        clients[idx].embed(img, deadline_ms=deadline_ms,
+                           request_id=f"smoke-{idx}")
+
+    try:
+        return run_closed_loop(
+            embed, server.input_shape, n_requests, n_streams,
+            seed=seed, stream_setup=setup)
+    finally:
+        for c in clients.values():
+            c.close()
+
+
+def _assert_drain_transition(server) -> List[str]:
+    """The lifecycle contract, checked over the real wire: ready before the
+    drain, readyz 503 and healthz 200 DURING it.  Returns the violations
+    (empty = clean); begin_drain is left set — the caller finishes with
+    server.drain()."""
+    from byol_tpu_torch.serving.net.client import EmbedClient
+
+    host, port = server.address
+    problems: List[str] = []
+    with EmbedClient(host, port, timeout_s=10.0) as probe:
+        status, _ = probe.get("/healthz")
+        if status != 200:
+            problems.append(f"healthz {status} != 200 before drain")
+        status, _ = probe.get("/readyz")
+        if status != 200:
+            problems.append(f"readyz {status} != 200 before drain")
+        server.begin_drain()
+        status, _ = probe.get("/readyz")
+        if status != 503:
+            problems.append(f"readyz {status} != 503 during drain")
+        status, _ = probe.get("/healthz")
+        if status != 200:
+            problems.append(f"healthz {status} != 200 during drain "
+                            "(liveness must outlive readiness)")
+    return problems
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_serve_parser().parse_args(argv)
     import signal
@@ -184,6 +268,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     except RuntimeError as e:
         print(f"byol_tpu_torch serve: {e}", file=sys.stderr)
         return 2
+    http_addr = None
+    if args.http:
+        from byol_tpu_torch.serving.net.client import parse_address
+        try:
+            http_addr = parse_address(args.http)
+        except ValueError as e:
+            print(f"byol_tpu_torch serve: {e}", file=sys.stderr)
+            return 2
     cfg = config_from_args(args)
     serve_cfg = ServeConfig(
         min_bucket=args.min_bucket, max_bucket=args.max_batch,
@@ -203,7 +295,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 "max_batch": args.max_batch,
                                 "max_queue": args.max_queue,
                                 "max_wait_ms": args.max_wait_ms,
-                                "pipeline": args.pipeline}},
+                                "pipeline": args.pipeline,
+                                "http": args.http}},
                     **run_header_env(device))
         try:
             service = build_service(cfg, serve_cfg, device=device,
@@ -224,36 +317,84 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"{time.perf_counter() - t0:.1f}s on {device}; accepting "
               f"requests ({service.engine.describe()})")
 
+        stop_signal = threading.Event()
+        got = {}
+        if not args.smoke:
+            # installed before the listener opens: a SIGTERM from a client
+            # that saw /readyz 200 must start the drain, not kill the
+            # process
+            def _on_signal(signum, frame):  # noqa: ARG001 — handler API
+                got["signal"] = signal.Signals(signum).name
+                stop_signal.set()
+
+            signal.signal(signal.SIGTERM, _on_signal)
+            signal.signal(signal.SIGINT, _on_signal)
+        server = None
+        if http_addr is not None:
+            from byol_tpu_torch.serving.net.server import WireServer
+            try:
+                server = WireServer(
+                    service, http_addr[0], http_addr[1],
+                    default_deadline_ms=args.http_deadline_ms).start()
+            except OSError as e:
+                service.stop()
+                print(f"byol_tpu_torch serve: cannot bind {args.http}: {e}",
+                      file=sys.stderr)
+                return 2
+            host, port = server.address
+            print(f"serve: wire front end at http://{host}:{port} "
+                  "(POST /v1/embed, GET /healthz /readyz /statsz)",
+                  flush=True)
+
         if args.smoke:
-            res = _run_smoke_inproc(service, args.smoke, args.smoke_streams,
-                                    seed=cfg.device.seed)
-            # read the window BEFORE stop(): its final stats emit resets it
-            snap = service.meter.snapshot(time.perf_counter(), reset=False)
-            service.stop()
+            problems: List[str] = []
+            if server is not None:
+                res = _run_smoke_wire(server, args.smoke, args.smoke_streams,
+                                      seed=cfg.device.seed,
+                                      deadline_ms=args.http_deadline_ms)
+                # read the window BEFORE the drain: the final stats emit
+                # in stop() resets it
+                snap = service.meter.snapshot(time.perf_counter(),
+                                              reset=False)
+                # the lifecycle assertions ride the smoke: readiness flips
+                # to 503 the moment the drain begins, liveness stays 200,
+                # and the drain completes cleanly
+                problems = _assert_drain_transition(server)
+                if not server.drain(grace_s=0.0, timeout_s=60.0):
+                    problems.append("drain timed out with requests still "
+                                    "in flight")
+            else:
+                res = _run_smoke_inproc(service, args.smoke,
+                                        args.smoke_streams,
+                                        seed=cfg.device.seed)
+                # read the window BEFORE stop(), same reason
+                snap = service.meter.snapshot(time.perf_counter(),
+                                              reset=False)
+                service.stop()
             export_trace()
             print(serve_log_line(snap))
             print(res.summary(), file=sys.stderr)
+            for p in problems:
+                print(f"serve: smoke lifecycle violation: {p}",
+                      file=sys.stderr)
             events.emit("run_end", smoke_requests=res.completed,
                         smoke_failed=res.failed,
                         compile_count=service.engine.compile_count)
-            return _smoke_rc(res, args.smoke)
+            return 1 if problems else _smoke_rc(res, args.smoke)
 
         # long-running mode: the worker serves; this thread flushes stats
         # windows until SIGTERM/SIGINT starts the drain
-        stop_signal = threading.Event()
-        got = {}
-
-        def _on_signal(signum, frame):  # noqa: ARG001 — handler contract
-            got["signal"] = signal.Signals(signum).name
-            stop_signal.set()
-
-        signal.signal(signal.SIGTERM, _on_signal)
-        signal.signal(signal.SIGINT, _on_signal)
         try:
             while not stop_signal.wait(serve_cfg.stats_interval_s):
                 service._emit_stats(force=True)
         finally:
-            service.stop()
+            print(f"serve: {got.get('signal', 'shutdown')} — draining "
+                  f"(readyz 503 for {args.drain_grace_s}s, then completing "
+                  "in-flight requests)", file=sys.stderr)
+            if server is not None:
+                server.drain(grace_s=args.drain_grace_s)
+            else:
+                service.stop()
             export_trace()
             events.emit("run_end", signal=got.get("signal"),
                         compile_count=service.engine.compile_count)

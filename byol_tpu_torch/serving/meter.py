@@ -1,7 +1,6 @@
 """ServingMeter: the latency-path health surface.
 
-A copy of byol_tpu/serving/meter.py without its wire-layer block (the HTTP
-front end is not ported yet).  Per window it collects:
+A copy of byol_tpu/serving/meter.py.  Per window it collects:
 
 - request/row/batch counts and achieved rows/sec;
 - p50/p99 request latency (enqueue -> result ready, the full user-visible
@@ -9,10 +8,12 @@ front end is not ported yet).  Per window it collects:
 - batch **fill ratio** (rows / bucket rows): the padding waste the
   power-of-two vocabulary costs;
 - queue depth at enqueue (backpressure proximity);
-- the mean per-request lifecycle phase durations (``phase_ms``).
+- the mean per-request lifecycle phase durations (``phase_ms``);
+- with the HTTP front end (serving/net/server.py), the additive ``wire``
+  block: answers by status and the mean read/parse/wait/write durations.
 
-Thread-safety: producers (client threads) and the consumer (the service
-worker) record under one lock.
+Thread-safety: producers (client and handler threads) and the consumer
+(the service worker) record under one lock.
 """
 from __future__ import annotations
 
@@ -50,9 +51,14 @@ class ServingMeter:
         # BREAKDOWN behind the p50/p99 headline
         self._phase_s: Dict[str, float] = {}
         self._phase_requests = 0
+        # wire layer (HTTP front end): status histogram + phase sums
+        self._wire_status: Dict[str, int] = {}
+        self._wire_phase_s: Dict[str, float] = {}
+        self._wire_requests = 0
         # lifetime totals (never reset): the run_end summary
         self.total_requests = 0
         self.total_batches = 0
+        self.total_wire_requests = 0
 
     # ---- producer side (client threads) -----------------------------------
     def record_enqueue(self, queue_depth: int) -> None:
@@ -85,6 +91,21 @@ class ServingMeter:
                                         + float(seconds))
             self._phase_requests += 1
 
+    # ---- wire side (the HTTP front end's handler threads) ------------------
+    def record_wire(self, status: int, phases: Dict[str, float]) -> None:
+        """Account one HTTP answer: final status + the wire phase
+        durations (server.WIRE_PHASES deltas) it reached.  EVERY answer
+        counts — a window full of 4xx is exactly the window worth
+        seeing, and the status histogram is how serve_stats says so."""
+        with self._lock:
+            key = str(int(status))
+            self._wire_status[key] = self._wire_status.get(key, 0) + 1
+            for phase, seconds in phases.items():
+                self._wire_phase_s[phase] = (
+                    self._wire_phase_s.get(phase, 0.0) + float(seconds))
+            self._wire_requests += 1
+            self.total_wire_requests += 1
+
     # ---- readout ----------------------------------------------------------
     def snapshot(self, t_now: float, *, reset: bool = True
                  ) -> Dict[str, float]:
@@ -115,6 +136,17 @@ class ServingMeter:
                 out["phase_ms"] = {
                     k: _ms(v / self._phase_requests)
                     for k, v in sorted(self._phase_s.items())}
+            if self._wire_requests:
+                # the front door's tax on top of phase_ms: wait spans the
+                # whole in-process path, so a wire request's latency is
+                # about read + parse + wait + write
+                out["wire"] = {
+                    "http_requests": float(self._wire_requests),
+                    "status": dict(sorted(self._wire_status.items())),
+                    "phase_ms": {
+                        k: _ms(v / self._wire_requests)
+                        for k, v in sorted(self._wire_phase_s.items())},
+                }
             if reset:
                 self._latencies.clear()
                 self._requests = self._rows = self._batches = 0
@@ -122,6 +154,9 @@ class ServingMeter:
                 self._depth_sum = self._depth_samples = 0
                 self._phase_s = {}
                 self._phase_requests = 0
+                self._wire_status = {}
+                self._wire_phase_s = {}
+                self._wire_requests = 0
                 self._window_start = None
             return out
 

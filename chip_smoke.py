@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive byol_tpu_torch's serving, training, input, accumulation and
-observability paths once on one CUDA card, and check them.
+"""Drive byol_tpu_torch's serving (in process and over the wire),
+training, input, accumulation, observability and linear-eval paths once
+on one CUDA card, and check them.
 
     python3 chip_smoke.py            # from the repository root; one card
 
@@ -33,13 +34,35 @@ Phases (any failure raises, and the script exits nonzero):
    the previous call left it, flushed, or holding the image, and the
    clocks nvidia-smi reads meanwhile;
 4. serving — ViT-B/16 (224 px, bf16, attn_impl='flash', random weights from
-   the seed, buckets 8..64) through ``build_service``: warmup, then 48
-   closed-loop requests from 3 streams with every launch counter set to 0
-   just before and read just after; every embedding must be (1, 768) and
-   finite, no bucket may warm again, and the flash kernel must have
-   launched 12 times per served batch.  One bucket-8 batch is held against
-   the same weights with attn_impl='dense' (bf16, rtol = atol = 3e-2: bf16
-   rounds the scores and probabilities at other points);
+   the seed, buckets 8..64) through ``build_service``: warmup captures one
+   CUDA graph per bucket (each capture must record 12 flash launches and
+   no other kernel), then 48 closed-loop requests from 3 streams with
+   every launch counter set to 0 just before and read just after; every
+   embedding must be (1, 768) and finite, no bucket may be captured
+   again, no wrapper counter may tick (a replay launches nothing through
+   the wrappers), and the flash launches derived from captures x replays
+   must be 12 per served batch.  Then the graph engine against an eager
+   engine (``graphs=False``) on the same represent fn at buckets 8 and 64:
+   bitwise expected (bf16 3e-2 otherwise, the difference printed), wall
+   ms a batch in turns and device-busy ms of 3 profiled batches each.
+   One bucket-8 batch is held against the same weights with
+   attn_impl='dense' (bf16, rtol = atol = 3e-2: bf16 rounds the scores
+   and probabilities at other points);
+4b. wire — (1) a ``WireServer`` over the same ``build_service`` in this
+   process: 48 requests from 3 ``EmbedClient`` streams of single float32
+   images, then 48 of uint8, counters set to 0 before and read after:
+   every answer (1, 768) and finite, flash launches from captures x
+   replays 12 per batch; the same 48 in-process before as the yardstick
+   (p50/p99, images/s), the ``wire`` block of serve_stats; one uint8 image
+   bitwise equal to its float32 u8/255 over the socket; JAX's malformed
+   bodies and the admission answers (411, 413 before the read, 400 and
+   408 deadlines) mapped over the real socket, the server serving after.
+   (2) ``python -m byol_tpu_torch serve --arch vit_b16 --attn-impl flash
+   --http 127.0.0.1:0 --smoke 48 --smoke-streams 3`` must exit 0; the same
+   without --smoke (``--drain-grace-s 2``) takes SIGTERM while 3 streams
+   have requests in flight: /readyz 503 and /healthz 200 in the grace
+   window, every admitted request answered 200 (the 200s of its
+   serve.jsonl equal the clients'), exit 0;
 5. training — the headline run ``--task fake --arch resnet50
    --image-size-override 224 --batch-size 64 --epochs 3 --debug-step
    --fused-update on --augment-placement step --fused-augment on`` (bf16,
@@ -131,9 +154,20 @@ Phases (any failure raises, and the script exits nonzero):
    the serving CLI's run log and flight recorder: the trace's
    ``serve/dispatch`` spans must number the batches served, and the
    worker's time splits by its top-level spans;
-10. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
-   ``{"observe": ...}`` and ``{"kernels": [...]}`` lines (launches on the
-   observe run, the slice's main path, and per path), then, last, the
+10. linear_eval — ``--task synth --num-synth-samples 1024 --arch resnet50
+   --image-size-override 224 --batch-size 64 --epochs 1
+   --augment-placement step --fused-augment on --fused-update on
+   --linear-eval`` through the CLI's ``main`` (temporary --model-dir and
+   --log-dir), counters set to 0 before and read after: 16 finite losses,
+   K2 = K1a = K1b = 16, top-1 >= 30 % (chance 10 %); top-1, top-5, train
+   accuracy, extraction images/s and the probe's seconds printed; one
+   batch through the extractor bitwise equal to the trained state's
+   ``frozen_representation_fn``;
+11. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
+   ``{"observe": ...}``, ``{"serving_graph_vs_eager": ..., "wire": ...,
+   "linear_eval": ...}`` and ``{"kernels": [...]}`` lines (launches on
+   this slice's main paths — K3 over the wire, from graph replays; K1a,
+   K1b and K2 in the linear-eval run — and per path), then, last, the
    ``{"ok": true, "device": ...}`` line.
 """
 import json
@@ -496,8 +530,11 @@ def _device_profile(run, iters, card, what, top=10):
     kinds, ranked, launches, launch_api_ms = {}, [], 0, 0.0
     for evt in prof.key_averages():
         # kernels and copies only: an operator's entry repeats its kernels'
-        # device time
+        # device time, and a span's annotation on the device timeline
+        # (a recorder span) spans kernels already counted
         ms = evt.self_device_time_total / 1e3 / iters
+        if getattr(evt, "is_user_annotation", False):
+            continue
         if evt.device_type == DeviceType.CUDA and ms > 0:
             kinds[_kind(evt.key)] = kinds.get(_kind(evt.key), 0.0) + ms
             ranked.append((ms, evt.key))
@@ -518,10 +555,90 @@ def _device_profile(run, iters, card, what, top=10):
             "launch_api_ms": launch_api_ms}
 
 
-def profile_embed(engine, rows, card, iters=3):
-    """Device time per kernel kind of one full-bucket embed."""
-    _device_profile(lambda: engine.embed(rows), iters, card,
-                    f"bucket {rows.shape[0]} embed, per batch")
+def profile_embed(engine, rows, card, iters=3, what=""):
+    """Device time per kernel kind of one bucket's embed."""
+    return _device_profile(lambda: engine.embed(rows), iters, card,
+                           f"bucket {rows.shape[0]} embed{what}, per batch")
+
+
+def _k3_replayed(engine, replays0):
+    """K3 launches the engine's graph replays made since ``replays0`` (a
+    ``describe()['replays']``): each bucket's capture launches times its
+    replays since.  A replay launches nothing through the wrapper, so its
+    counter does not tick."""
+    d = engine.describe()
+    return sum(d["capture_launches"].get(b, {}).get("flash_attention", 0)
+               * (n - replays0.get(b, 0)) for b, n in d["replays"].items())
+
+
+def _check_captures(engine, what):
+    """Every bucket captured, 12 K3 launches (one per ViT-B/16 block) and
+    no other kernel in each capture."""
+    d = engine.describe()
+    want = {str(b): {"flash_attention": 12} for b in engine.buckets.sizes}
+    if not d["graphs"] or d["capture_launches"] != want:
+        raise AssertionError(f"{what}: captures {d['capture_launches']} "
+                             f"(graphs={d['graphs']}); want {want}")
+
+
+def graph_vs_eager(engine, card, turns=2, iters=10):
+    """The graph engine against an eager engine on the same represent fn:
+    bucket 8 and 64 embeddings (bitwise expected; bf16 3e-2 otherwise,
+    with the difference printed), then wall ms a batch in turns (graph,
+    eager, eager, graph) and device-busy ms of 3 profiled batches each."""
+    import numpy as np
+    import torch
+    from byol_tpu_torch.serving.engine import ServingEngine
+    eager = ServingEngine(engine.represent, engine.input_shape,
+                          engine.buckets, device="cuda", graphs=False)
+    eager.warmup()
+    out = {}
+    for b in (8, 64):
+        rows = np.random.RandomState(30 + b).rand(
+            b, *engine.input_shape).astype(np.float32)
+        got, want = engine.embed(rows), eager.embed(rows)
+        bitwise = bool(np.array_equal(got, want))
+        err = float(np.abs(got - want).max())
+        ok = bitwise or bool(np.allclose(got, want, rtol=SLICE_TOL,
+                                         atol=SLICE_TOL))
+        print(f"slice: graph vs eager, bucket {b}: bitwise {bitwise}, max "
+              f"abs err {err:.3g} ok={ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"slice: graph and eager disagree at "
+                                 f"bucket {b} (max abs err {err})")
+        wall = {"graph": [], "eager": []}
+        for _ in range(turns):
+            for arm in ("graph", "eager", "eager", "graph"):
+                eng = engine if arm == "graph" else eager
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    eng.embed(rows)
+                wall[arm].append((time.perf_counter() - t0) * 1e3 / iters)
+        prof = {arm: profile_embed(eng, rows, card, what=f" ({arm})")
+                for arm, eng in (("graph", engine), ("eager", eager))}
+        # the host's share of embed's serial path that no graph removes:
+        # the rows' copy into a pinned staging buffer
+        pinned = torch.empty(rows.shape, dtype=torch.float32,
+                             pin_memory=True).numpy()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            pinned[:] = rows
+        stage_ms = (time.perf_counter() - t0) * 1e3 / iters
+        out[b] = {"bitwise": bitwise, "max_abs_err": err,
+                  "host_stage_copy_ms": stage_ms}
+        for arm in ("graph", "eager"):
+            out[b][arm] = {"wall_ms": sorted(wall[arm]),
+                           "busy_ms": prof[arm]["busy_ms"],
+                           "profiled_wall_ms": prof[arm]["wall_ms"]}
+        print(f"slice: bucket {b} wall ms a batch, graph "
+              f"{min(wall['graph']):.3f}..{max(wall['graph']):.3f} "
+              f"({b / min(wall['graph']) * 1e3:.1f} img/s) vs eager "
+              f"{min(wall['eager']):.3f}..{max(wall['eager']):.3f}; busy "
+              f"graph {prof['graph']['busy_ms']:.3f} vs eager "
+              f"{prof['eager']['busy_ms']:.3f} ms; the rows' host copy into "
+              f"pinned memory {stage_ms:.3f} ms [{card}]", flush=True)
+    del eager
+    return out
 
 
 def _zero_counters():
@@ -534,11 +651,8 @@ def _zero_counters():
 
 def _read_counters():
     """(flash_attention, segment_norms, fused_apply, two_view) launches."""
-    from byol_tpu_torch.ops import flash_attention as fa
-    from byol_tpu_torch.ops import fused_augment as fg
-    from byol_tpu_torch.ops import fused_update as fu
-    return (fa.LAUNCHES, fu.SEGMENT_NORMS_LAUNCHES, fu.FUSED_APPLY_LAUNCHES,
-            fg.LAUNCHES)
+    from byol_tpu_torch.serving.engine import kernel_launches
+    return tuple(kernel_launches().values())
 
 
 def _rn50_segment_map():
@@ -1966,7 +2080,6 @@ def _run_slice(card, log_dir):
     from byol_tpu_torch.models.layers import store_in_compute_dtype
     from byol_tpu_torch.observability.events import (read_events,
                                                      run_header_env)
-    from byol_tpu_torch.ops import flash_attention as fa
     from byol_tpu_torch.serving.cli import serve_observers
     from byol_tpu_torch.serving.net.loadgen import run_closed_loop
     from byol_tpu_torch.serving.service import (ServeConfig, _serving_rcfg,
@@ -1997,12 +2110,15 @@ def _run_slice(card, log_dir):
             raise AssertionError(f"stream {idx}: embedding of shape "
                                  f"{out.shape}, finite={finite}")
 
+    _check_captures(service.engine, "slice")
+    replays0 = dict(service.engine.describe()["replays"])
     batches0 = service.meter.total_batches
     _zero_counters()
     res = run_closed_loop(embed, service.engine.input_shape, 48, 3, seed=0)
-    launches = fa.LAUNCHES
-    if _read_counters()[1:] != (0, 0, 0):
-        raise AssertionError("slice: serving launched a K1 or K2 kernel")
+    if _read_counters() != (0, 0, 0, 0):
+        raise AssertionError(f"slice: serving launched a kernel outside its "
+                             f"graphs: {_read_counters()}")
+    launches = _k3_replayed(service.engine, replays0)
     batches = service.meter.total_batches - batches0
     snap = service.meter.snapshot(time.perf_counter(), reset=False)
     # the served window's trace, as the CLI writes it at exit
@@ -2030,20 +2146,12 @@ def _run_slice(card, log_dir):
         raise AssertionError(f"slice: {dispatch_spans} serve/dispatch spans "
                              f"for {batches} batches")
     print(f"slice: flash_attention launches {launches} = 12 x {batches} "
-          "batches", flush=True)
+          "batches, from graph replays (captures x replays)", flush=True)
 
-    # full-bucket throughput, through the engine (outside the counted run)
-    rows64 = np.random.RandomState(1).rand(64, 224, 224, 3).astype(
-        np.float32)
-    service.engine.embed(rows64)
-    t0 = time.perf_counter()
-    for _ in range(5):
-        service.engine.embed(rows64)
-    dt = (time.perf_counter() - t0) / 5
-    print(f"slice: bucket 64 embed {dt * 1e3:.3f} ms = {64 / dt:.1f} img/s "
-          f"[{card}]", flush=True)
-
-    profile_embed(service.engine, rows64, card)
+    # graph against eager on the same weights (outside the counted run)
+    versus = graph_vs_eager(service.engine, card)
+    if service.engine.compile_count != warm:
+        raise AssertionError("slice: a bucket was captured again")
 
     # one bucket-8 batch against the same weights under dense attention
     rows8 = np.random.RandomState(2).rand(8, 224, 224, 3).astype(np.float32)
@@ -2071,7 +2179,491 @@ def _run_slice(card, log_dir):
           f"{SLICE_TOL}) ok={ok}", flush=True)
     if not ok:
         raise AssertionError("slice: flash and dense embeddings disagree")
-    return launches
+    return launches, versus
+
+
+WIRE_REQUESTS, WIRE_STREAMS = 48, 3
+WIRE_ARCH, WIRE_SIZE, WIRE_DIM = "vit_b16", 224, 768
+WIRE_GRACE_S = 2.0                 # --drain-grace-s of the SIGTERM run
+
+
+def _wire_images(kind):
+    """make_images for the loadgen: one (1, S, S, 3) image per stream,
+    float32 in [0, 1] or uint8, from the stream's seed."""
+    import numpy as np
+
+    def make(idx):
+        rng = np.random.RandomState(100 + idx)
+        if kind == "uint8":
+            return rng.randint(0, 256, (1, WIRE_SIZE, WIRE_SIZE, 3),
+                               dtype=np.uint8)
+        return rng.rand(1, WIRE_SIZE, WIRE_SIZE, 3).astype(np.float32)
+    return make
+
+
+def _malformed_table(max_body_bytes):
+    """(what, method args, status, code) over the real socket: JAX's
+    malformed bodies at the served shape, and the admission answers made
+    before a body byte is read."""
+    import struct
+    row, half = WIRE_SIZE * WIRE_SIZE * 3, WIRE_SIZE // 2
+
+    def frame(header, payload):
+        head = json.dumps(header).encode()
+        return struct.pack(">I", len(head)) + head + payload
+
+    shape = [1, WIRE_SIZE, WIRE_SIZE, 3]
+    return [
+        ("garbage", dict(body=b"garbage"), 400, "bad_frame"),
+        ("bad version", dict(body=frame({"v": 9, "dtype": "uint8",
+                                         "shape": shape}, bytes(row))),
+         400, "bad_version"),
+        ("float64", dict(body=frame({"v": 1, "dtype": "float64",
+                                     "shape": shape}, bytes(8 * row))),
+         415, "unsupported_dtype"),
+        ("row shape", dict(body=frame({"v": 1, "dtype": "uint8",
+                                       "shape": [1, half, half, 3]},
+                                      bytes(half * half * 3))),
+         400, "bad_shape"),
+        ("truncated", dict(body=frame({"v": 1, "dtype": "uint8",
+                                       "shape": shape}, bytes(row - 1))),
+         400, "payload_size_mismatch"),
+        ("65 rows", dict(body=frame({"v": 1, "dtype": "uint8",
+                                     "shape": [65, WIRE_SIZE, WIRE_SIZE, 3]},
+                                    bytes(65 * row))), 413, "too_many_rows"),
+        ("oversized Content-Length",
+         dict(body=b"", headers={"Content-Length": str(max_body_bytes + 1)}),
+         413, "too_large"),
+        ("no Content-Length", dict(chunked=True), 411, "length_required"),
+        ("NaN deadline", dict(headers={"X-Deadline-Ms": "NaN"}), 400,
+         "bad_deadline"),
+        ("spent deadline", dict(headers={"X-Deadline-Ms": "0"}), 408,
+         "deadline_expired"),
+    ]
+
+
+def _raw_post(host, port, good, body=None, headers=None, chunked=False):
+    """One POST /v1/embed on a fresh connection -> (status, error code)."""
+    import http.client
+    conn = http.client.HTTPConnection(host, port, timeout=60)
+    try:
+        if chunked:
+            conn.putrequest("POST", "/v1/embed")
+            conn.putheader("Transfer-Encoding", "chunked")
+            conn.endheaders()
+            conn.send(b"0\r\n\r\n")
+        else:
+            conn.request("POST", "/v1/embed",
+                         body=good if body is None else body,
+                         headers=headers or {})
+        resp = conn.getresponse()
+        payload = resp.read()
+        code = (json.loads(payload).get("error")
+                if resp.status != 200 else "")
+        return resp.status, code
+    finally:
+        conn.close()
+
+
+def run_wire(card):
+    """The wire front end: (1) the counted run, a WireServer over
+    build_service in this process; (2) the serve CLI in subprocesses, a
+    wire smoke and a SIGTERM drain under load.  -> (K3 launches of the
+    counted run, row)."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_wire_")
+    try:
+        launches, row = _wire_inproc(card)
+        row["cli"] = _wire_cli(card, root)
+        return launches, row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _wire_inproc(card):
+    import numpy as np
+    from byol_tpu_torch.core.config import (Config, DeviceConfig,
+                                            ModelConfig, TaskConfig)
+    from byol_tpu_torch.serving.net import protocol
+    from byol_tpu_torch.serving.net.client import EmbedClient
+    from byol_tpu_torch.serving.net.loadgen import run_closed_loop
+    from byol_tpu_torch.serving.net.server import WireServer
+    from byol_tpu_torch.serving.service import ServeConfig, build_service
+
+    cfg = Config(task=TaskConfig(image_size_override=WIRE_SIZE),
+                 model=ModelConfig(arch=WIRE_ARCH, attn_impl="flash"),
+                 device=DeviceConfig(half=True, seed=0))
+    service = build_service(cfg, ServeConfig(min_bucket=8, max_bucket=64),
+                            device="cuda")
+    service.start()
+    _check_captures(service.engine, "wire")
+    warm = service.engine.compile_count
+    server = WireServer(service, "127.0.0.1", 0).start()
+    host, port = server.address
+    clients = {}
+    row = {}
+    try:
+        def check(idx, out):
+            if out.shape != (1, WIRE_DIM) or not np.isfinite(out).all():
+                raise AssertionError(f"stream {idx}: embedding of shape "
+                                     f"{out.shape}, finite="
+                                     f"{bool(np.isfinite(out).all())}")
+
+        def inproc(idx, img):
+            check(idx, service.embed(img, timeout=300))
+
+        def setup(idx):
+            clients[idx] = EmbedClient(host, port, timeout_s=300, seed=idx)
+
+        def wire(idx, img):
+            check(idx, clients[idx].embed(img, deadline_ms=300_000))
+
+        # in-process first, outside the counted window (the yardstick)
+        base = run_closed_loop(inproc, service.engine.input_shape,
+                               WIRE_REQUESTS, WIRE_STREAMS, seed=0,
+                               make_images=_wire_images("float32"))
+        replays0 = dict(service.engine.describe()["replays"])
+        batches0 = service.meter.total_batches
+        _zero_counters()
+        runs = {kind: run_closed_loop(
+                    wire, service.engine.input_shape, WIRE_REQUESTS,
+                    WIRE_STREAMS, seed=0, make_images=_wire_images(kind),
+                    stream_setup=setup)
+                for kind in ("float32", "uint8")}
+        if _read_counters() != (0, 0, 0, 0):
+            raise AssertionError(f"wire: a kernel launched outside the "
+                                 f"graphs: {_read_counters()}")
+        launches = _k3_replayed(service.engine, replays0)
+        batches = service.meter.total_batches - batches0
+        snap = service.meter.snapshot(time.perf_counter(), reset=False)
+        for name, res in (("in-process", base), ("wire float32",
+                                                 runs["float32"]),
+                          ("wire uint8", runs["uint8"])):
+            print(f"wire: {name}: {res.summary()} = "
+                  f"{res.throughput():.1f} img/s [{card}]", flush=True)
+            if not res.ok:
+                raise AssertionError(f"wire: {name}: {res.summary()}")
+            row[name] = {"p50_ms": res.percentile_ms(50),
+                         "p99_ms": res.percentile_ms(99),
+                         "img_per_s": res.throughput()}
+        row["wire"] = snap["wire"]
+        print(f"wire: serve_stats wire block {snap['wire']} [{card}]",
+              flush=True)
+        print(f"wire: flash_attention launches {launches} for {batches} "
+              f"batches, from graph replays", flush=True)
+        if batches < 1 or launches != 12 * batches:
+            raise AssertionError(f"wire: flash_attention launched "
+                                 f"{launches} times for {batches} batches "
+                                 "(want 12 each)")
+        if service.engine.compile_count != warm:
+            raise AssertionError("wire: a bucket was captured again")
+        row["launches"], row["batches"] = launches, batches
+
+        # uint8 against float32 u8/255, one image alone in bucket 8
+        u8 = _wire_images("uint8")(7)
+        with EmbedClient(host, port, timeout_s=300) as c:
+            got_u8 = c.embed(u8)
+            got_f32 = c.embed(u8.astype(np.float32) / np.float32(255.0))
+        same = bool(np.array_equal(got_u8, got_f32))
+        print(f"wire: uint8 == float32 u8/255 bitwise: {same}", flush=True)
+        if not same:
+            raise AssertionError("wire: the uint8 answer differs from the "
+                                 "float32 u8/255 one")
+        row["uint8_bitwise"] = same
+
+        good = protocol.encode_request(_wire_images("float32")(0))
+        bad = []
+        for what, kw, status, code in _malformed_table(
+                server.max_body_bytes):
+            got = _raw_post(host, port, good, **kw)
+            if got != (status, code):
+                bad.append(f"{what}: {got} != {(status, code)}")
+        if _raw_post(host, port, good)[0] != 200:
+            bad.append("a good request after the table was not answered "
+                       "200")
+        print(f"wire: malformed table over the socket: "
+              f"{len(_malformed_table(0)) - len(bad)}/"
+              f"{len(_malformed_table(0))} mapped, server still serving "
+              f"{not bad}", flush=True)
+        if bad:
+            raise AssertionError(f"wire: {bad}")
+    finally:
+        for c in clients.values():
+            c.close()
+        server.drain(grace_s=0.0, timeout_s=120)
+    return launches, row
+
+
+def _serve_cmd(log_dir, *extra):
+    return [sys.executable, "-m", "byol_tpu_torch", "serve", "--arch",
+            WIRE_ARCH, "--image-size-override", str(WIRE_SIZE),
+            "--attn-impl", "flash", "--http", "127.0.0.1:0",
+            "--log-dir", log_dir, *extra]
+
+
+def _wire_cli(card, root):
+    """The serve CLI in subprocesses: a wire smoke of 48 requests from 3
+    streams (exit 0), then a long-running server that takes SIGTERM while
+    3 streams have requests in flight: readyz 503 in the grace window,
+    every accepted request answered 200, exit 0, serve.jsonl with the
+    wire block."""
+    import http.client
+    import signal
+    import threading
+
+    import numpy as np
+    from byol_tpu_torch.observability.events import read_events
+    from byol_tpu_torch.serving.net.client import (EmbedClient,
+                                                   WireClientError,
+                                                   wait_until_ready)
+    here = os.path.dirname(os.path.abspath(__file__))
+    row = {}
+    smoke_dir = os.path.join(root, "smoke")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        _serve_cmd(smoke_dir, "--smoke", str(WIRE_REQUESTS),
+                   "--smoke-streams", str(WIRE_STREAMS)),
+        cwd=here, capture_output=True, text=True, timeout=600)
+    row["smoke_rc"] = proc.returncode
+    row["smoke_s"] = time.perf_counter() - t0
+    tail = [ln for ln in (proc.stdout + proc.stderr).splitlines()
+            if ln.startswith(("serve[", "loadgen:", "serve: smoke"))]
+    print(f"wire: serve --http --smoke {WIRE_REQUESTS}: rc "
+          f"{proc.returncode} in {row['smoke_s']:.1f} s; {tail} [{card}]",
+          flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"wire: the CLI smoke exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+
+    log_dir = os.path.join(root, "long")
+    os.makedirs(log_dir)
+    out_path = os.path.join(log_dir, "stdout.txt")
+    with open(out_path, "w") as out, \
+            open(os.path.join(log_dir, "stderr.txt"), "w") as err:
+        proc = subprocess.Popen(
+            _serve_cmd(log_dir, "--drain-grace-s", str(WIRE_GRACE_S)),
+            cwd=here, stdout=out, stderr=err)
+    try:
+        address = None
+        deadline = time.monotonic() + 600
+        while address is None and time.monotonic() < deadline:
+            if proc.poll() is not None:
+                break
+            with open(out_path) as f:
+                for line in f:
+                    if "wire front end at http://" in line:
+                        address = line.split("http://")[1].split()[0]
+            time.sleep(0.2)
+        if address is None:
+            raise AssertionError(f"wire: the server printed no address "
+                                 f"(rc {proc.poll()})")
+        host, port = address.rsplit(":", 1)
+        port = int(port)
+        if not wait_until_ready(host, port, timeout_s=120):
+            raise AssertionError("wire: /readyz never answered 200")
+        lock = threading.Lock()
+        outcome = {"ok": 0, "ok_after_sigterm": 0, "refused": 0,
+                   "other": []}
+        sigterm_at = []
+
+        def stream(idx):
+            img = _wire_images("float32")(idx)
+            with EmbedClient(host, port, timeout_s=120, max_attempts=1,
+                             seed=idx) as c:
+                while True:
+                    try:
+                        out = c.embed(img)
+                    except WireClientError as e:
+                        with lock:
+                            if e.status in (0, 503):
+                                outcome["refused"] += 1
+                            else:
+                                outcome["other"].append(str(e)[:200])
+                        return
+                    with lock:
+                        if out.shape != (1, WIRE_DIM) or \
+                                not np.isfinite(out).all():
+                            outcome["other"].append(f"bad {out.shape}")
+                            return
+                        outcome["ok"] += 1
+                        if sigterm_at:
+                            outcome["ok_after_sigterm"] += 1
+
+        threads = [threading.Thread(target=stream, args=(i,), daemon=True)
+                   for i in range(WIRE_STREAMS)]
+        for t in threads:
+            t.start()
+        while outcome["ok"] < 6 and proc.poll() is None:
+            time.sleep(0.01)
+        with lock:
+            sigterm_at.append(time.perf_counter())
+        proc.send_signal(signal.SIGTERM)
+        readyz, healthz = [], []
+        while time.perf_counter() - sigterm_at[0] < WIRE_GRACE_S:
+            with EmbedClient(host, port, timeout_s=5, max_attempts=1) as p:
+                try:
+                    readyz.append(p.get("/readyz")[0])
+                    healthz.append(p.get("/healthz")[0])
+                except (OSError, http.client.HTTPException):
+                    break
+            time.sleep(0.05)
+        for t in threads:
+            t.join(timeout=300)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stats = [e for e in read_events(os.path.join(log_dir, "serve.jsonl"))
+             if e["kind"] == "serve_stats" and "wire" in e]
+    statuses = {}
+    for e in stats:
+        for k, v in e["wire"]["status"].items():
+            statuses[k] = statuses.get(k, 0) + int(v)
+    row.update(sigterm_rc=rc, readyz=sorted(set(readyz)),
+               healthz=sorted(set(healthz)), client=outcome,
+               server_statuses=statuses)
+    print(f"wire: SIGTERM under load: rc {rc}; readyz in the grace window "
+          f"{sorted(set(readyz))} ({len(readyz)} probes), healthz "
+          f"{sorted(set(healthz))}; clients {outcome}; serve.jsonl wire "
+          f"statuses {statuses} [{card}]", flush=True)
+    problems = []
+    if rc != 0:
+        problems.append(f"exit {rc}")
+    if 503 not in readyz or set(healthz) != {200}:
+        problems.append("readyz never 503 in the grace window, or healthz "
+                        "not 200")
+    if any(t.is_alive() for t in threads) or outcome["other"]:
+        problems.append(f"a stream hung or failed: {outcome['other']}")
+    if not stats:
+        problems.append("serve.jsonl has no serve_stats with a wire block")
+    if set(statuses) - {"200", "503"} or \
+            statuses.get("200", 0) != outcome["ok"]:
+        problems.append(f"accepted requests not all answered 200: server "
+                        f"{statuses}, clients {outcome['ok']} ok")
+    if problems:
+        raise AssertionError(f"wire: SIGTERM drain: {problems}")
+    return row
+
+
+LINEAR_EVAL_ARGV = ["--task", "synth", "--num-synth-samples", "1024",
+                    "--arch", "resnet50", "--image-size-override", "224",
+                    "--batch-size", "64", "--epochs", "1",
+                    "--augment-placement", "step", "--fused-augment", "on",
+                    "--fused-update", "on", "--linear-eval"]
+LINEAR_EVAL_STEPS = 16             # 1024 synth images at batch 64
+LINEAR_EVAL_MIN_TOP1 = 30.0        # percent; chance on synth's 10 classes
+
+
+def run_linear_eval(card):
+    """``--linear-eval`` through the CLI's main, counters set to 0 before
+    and read after; the trainer and linear eval watched through wrappers
+    of their module functions (restored after).  -> (counts, row)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from byol_tpu_torch import cli
+    from byol_tpu_torch.training import linear_eval as le
+    from byol_tpu_torch.training import trainer
+
+    seen = {"extract_s": 0.0, "extract_rows": 0}
+    originals = {(trainer, "fit"): trainer.fit,
+                 (le, "encoder_apply_fn"): le.encoder_apply_fn,
+                 (le, "extract_features"): le.extract_features,
+                 (le, "fit_and_score"): le.fit_and_score,
+                 (le, "run_linear_eval_from_cfg"):
+                     le.run_linear_eval_from_cfg}
+
+    def fit(*a, **kw):
+        seen["fit"] = originals[(trainer, "fit")](*a, **kw)
+        return seen["fit"]
+
+    def encoder_apply_fn(*a, **kw):
+        seen["apply"] = originals[(le, "encoder_apply_fn")](*a, **kw)
+        return seen["apply"]
+
+    def extract_features(*a, **kw):
+        t = time.perf_counter()
+        feats, labels = originals[(le, "extract_features")](*a, **kw)
+        seen["extract_s"] += time.perf_counter() - t
+        seen["extract_rows"] += len(labels)
+        return feats, labels
+
+    def fit_and_score(*a, **kw):
+        t = time.perf_counter()
+        out = originals[(le, "fit_and_score")](*a, **kw)
+        seen["probe_s"] = time.perf_counter() - t
+        return out
+
+    def run_linear_eval_from_cfg(*a, **kw):
+        seen["result"] = originals[(le, "run_linear_eval_from_cfg")](*a,
+                                                                      **kw)
+        return seen["result"]
+
+    spies = {"fit": fit, "encoder_apply_fn": encoder_apply_fn,
+             "extract_features": extract_features,
+             "fit_and_score": fit_and_score,
+             "run_linear_eval_from_cfg": run_linear_eval_from_cfg}
+    root = tempfile.mkdtemp(prefix="chip_smoke_linear_eval_")
+    for mod, name in originals:
+        setattr(mod, name, spies[name])
+    try:
+        t0 = time.perf_counter()
+        _zero_counters()
+        rc = cli.main(LINEAR_EVAL_ARGV + [
+            "--model-dir", os.path.join(root, "m"),
+            "--log-dir", os.path.join(root, "l")])
+        counts = _read_counters()
+        wall = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+        shutil.rmtree(root, ignore_errors=True)
+    result, res = seen.get("fit"), seen.get("result")
+    if rc != 0 or result is None or res is None:
+        raise AssertionError(f"linear_eval: the CLI exited {rc}")
+    losses = result.step_losses
+    ips = seen["extract_rows"] / seen["extract_s"]
+    print(f"linear_eval: {len(losses)} steps, losses finite "
+          f"{bool(np.isfinite(losses).all())}, launches (flash, "
+          f"segment_norms, fused_apply, two_view) = {counts}; top1 "
+          f"{res.top1:.2f} top5 {res.top5:.2f} train acc "
+          f"{res.train_acc:.2f} ({res.num_train} train / {res.num_test} "
+          f"test); extraction {seen['extract_rows']} images in "
+          f"{seen['extract_s']:.3f} s = {ips:.1f} img/s, probe fit "
+          f"{seen['probe_s']:.3f} s, run {wall:.1f} s [{card}]", flush=True)
+    n = LINEAR_EVAL_STEPS
+    if (len(losses) != n or not np.isfinite(losses).all()
+            or counts != (0, n, n, n)):
+        raise AssertionError(f"linear_eval: {len(losses)} steps, counts "
+                             f"{counts}; want {n} finite, (0, {n}, {n}, {n})")
+    if res.top1 < LINEAR_EVAL_MIN_TOP1:
+        raise AssertionError(f"linear_eval: top1 {res.top1:.2f} < "
+                             f"{LINEAR_EVAL_MIN_TOP1}")
+    # one extracted batch against the trained state's own encoder
+    size = int(LINEAR_EVAL_ARGV[LINEAR_EVAL_ARGV.index(
+        "--image-size-override") + 1])
+    rows = np.random.RandomState(5).rand(64, size, size, 3).astype(
+        np.float32)
+    got = seen["apply"](rows)
+    want = le.frozen_representation_fn(result.state.net, half=True)(
+        torch.from_numpy(rows).cuda()).cpu().numpy()
+    same = bool(np.array_equal(got, want))
+    print(f"linear_eval: extracted batch == frozen_representation_fn of the "
+          f"trained state, bitwise: {same} (max abs err "
+          f"{float(np.abs(got - want).max()):.3g})", flush=True)
+    if not same:
+        raise AssertionError("linear_eval: the extractor's features differ "
+                             "from the trained state's encoder")
+    row = {"top1": res.top1, "top5": res.top5, "train_acc": res.train_acc,
+           "num_train": res.num_train, "num_test": res.num_test,
+           "extract_img_per_s": ips, "extract_s": seen["extract_s"],
+           "probe_s": seen["probe_s"], "run_s": wall,
+           "losses": [float(x) for x in losses]}
+    return counts, row
 
 
 def main() -> int:
@@ -2113,13 +2705,15 @@ def main() -> int:
     k1_rows = phase("fused_update", check_fused_update, card)
     k2_rows = phase("two_view", check_two_view, card)
     phase("two_view passes", k2_pass_sweeps, card)
-    launches = phase("serving", run_slice, card)
+    serving_launches, versus = phase("serving", run_slice, card)
+    wire_launches, wire_row = phase("wire", run_wire, card)
     train_counts = phase("training", run_training, card)
     ckpt_counts, resumed_counts = phase("checkpoint", run_checkpoint, card)
     input_counts, input_rows = phase("input", run_input, card)
     accum_counts, accum_row = phase("accum", run_accum, card)
     observe_counts, observe_row = phase(
         "observe", run_observe, card, accum_row["microbatch"], accum_row)
+    le_counts, le_row = phase("linear_eval", run_linear_eval, card)
     print(f"phases, s: {phases}; total since start "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2131,7 +2725,14 @@ def main() -> int:
         "route": "cuda",
         "source": "byol_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "byol_tpu/ops/flash_attention.py:47",
-        "launches": launches,
+        # this slice's main path: served over the wire, from graph
+        # replays (each bucket's capture launches x its replays)
+        "launches": wire_launches,
+        "launches_by_path": {
+            "wire (graph replays)": wire_launches,
+            "serving (graph replays)": serving_launches,
+            "linear_eval": le_counts[0], "observe": observe_counts[0],
+            "accum": accum_counts[0], "training": train_counts[0]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                            if r["dtype"] == "bfloat16"),
         "ms": main_row["ms"],
@@ -2144,9 +2745,10 @@ def main() -> int:
     }]
 
     def by_path(i):
-        """A kernel's launches on each training path: the observe phase's
-        run is this slice's main path."""
-        paths = {"observe": observe_counts[i], "accum": accum_counts[i],
+        """A kernel's launches on each training path (and 0 on the served
+        ones): the linear_eval phase's run is this slice's main path."""
+        paths = {"linear_eval": le_counts[i], "wire": 0, "serving": 0,
+                 "observe": observe_counts[i], "accum": accum_counts[i],
                  "training": train_counts[i],
                  "checkpoint, uninterrupted": ckpt_counts[i],
                  "checkpoint, relaunch after SIGTERM": resumed_counts[i]}
@@ -2159,7 +2761,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "byol_tpu_torch/ops/csrc/fused_update.cu",
             "replaces": f"byol_tpu/ops/fused_update.py:{line}",
-            "launches": observe_counts[i], "launches_by_path": by_path(i),
+            "launches": le_counts[i], "launches_by_path": by_path(i),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2170,7 +2772,7 @@ def main() -> int:
         "name": "two_view", "route": "cuda",
         "source": "byol_tpu_torch/ops/csrc/fused_augment.cu",
         "replaces": "byol_tpu/ops/fused_augment.py:179",
-        "launches": observe_counts[3], "launches_by_path": by_path(3),
+        "launches": le_counts[3], "launches_by_path": by_path(3),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -2180,6 +2782,8 @@ def main() -> int:
     print(json.dumps({"input_arms": input_rows}), flush=True)
     print(json.dumps({"accum": accum_row}), flush=True)
     print(json.dumps({"observe": observe_row}), flush=True)
+    print(json.dumps({"serving_graph_vs_eager": versus, "wire": wire_row,
+                      "linear_eval": le_row}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
