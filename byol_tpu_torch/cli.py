@@ -9,9 +9,16 @@ no ``--no-cuda`` it exits 2 before building anything.  Checkpoints go to
 ``--model-dir/<run name>``, and a relaunch with the same flags resumes
 there; on SIGTERM the run checkpoints and exits 143 (``--no-save-on-signal``
 turns that off), and ``--fault-at-step N`` exits at step N without saving.
-The data axis is 1 (one card), as the JAX CLI's ``--num-replicas 0``
-resolves it on a one-device host, so both name a run of the same flags
-alike.
+Data parallel over torch.distributed, one process per card: launch with
+``torchrun --nproc_per_node N -m byol_tpu_torch ...`` (rank r drives
+``cuda:LOCAL_RANK``), or give each process the JAX CLI's
+``--distributed-master HOST[:PORT] --distributed-rank R --num-processes
+N``.  The data axis is the world size (``--num-replicas 0``, JAX's
+default, resolves it as JAX resolves it to the devices it finds).
+``--zero1 on`` shards the weight update (parallel/zero1.py),
+``--flat-resident on`` gathers its params in ``--flat-bucket-mb``
+buckets; ``--shard-eval`` shards the test split.  A failed rendezvous or
+collective exits nonzero.
 
 Every run writes ``<--log-dir>/<run name>/run.jsonl`` (the JAX event
 schema), ``trace.json`` (the span flight recorder, ``--spans on``) and the
@@ -34,12 +41,13 @@ from typing import List, Optional
 from byol_tpu_torch.core.config import (Config, DeviceConfig, ModelConfig,
                                         OptimConfig, RegularizerConfig,
                                         TaskConfig)
+from byol_tpu_torch.parallel.mesh import world_size
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m byol_tpu_torch",
-        description="BYOL pretraining on one CUDA card (PyTorch port)")
+        description="BYOL pretraining on CUDA cards (PyTorch port)")
     p.add_argument("--task", type=str, default="image_folder",
                    help="image_folder | cifar10 | cifar100 | mnist | "
                         "fashion_mnist | digits | fake | synth")
@@ -169,6 +177,48 @@ def build_parser() -> argparse.ArgumentParser:
                    help="after training, run the OFFLINE linear-evaluation "
                         "protocol (frozen encoder + fresh probe: the BYOL "
                         "paper's metric)")
+    p.add_argument("--convert-to-sync-bn",
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help="accepted as in the JAX package, where it changes "
+                        "nothing: BatchNorm statistics are the global "
+                        "batch's at any world size > 1")
+    # the data axis (byol_tpu/cli.py's device group)
+    p.add_argument("--num-replicas", type=int, default=0,
+                   help="data-axis size; 0 = the world size")
+    p.add_argument("--num-processes", type=int, default=0,
+                   help="the world size for an explicit rendezvous "
+                        "(--distributed-master); torchrun sets its own")
+    p.add_argument("--distributed-master", type=str, default="",
+                   help="HOST or HOST:PORT of rank 0's rendezvous (without "
+                        "torchrun)")
+    p.add_argument("--distributed-rank", type=int, default=0)
+    p.add_argument("--distributed-port", type=int, default=29300)
+    p.add_argument("--shard-eval", action="store_true",
+                   help="shard the test set across ranks (default: every "
+                        "rank holds it whole and the batches are dealt)")
+    p.add_argument("--zero1", type=str, default=None, choices=("off", "on"),
+                   help="ZeRO-1: 'on' shards the LARS momentum and the EMA "
+                        "target's update over the data axis (reduce-scatter "
+                        "of the gradient, K1a split + K1b on each rank's "
+                        "range, all-gather of the params); needs "
+                        "--fused-update on")
+    p.add_argument("--flat-resident", type=str, default="off",
+                   choices=("off", "on"),
+                   help="the update state is resident and flat already; "
+                        "'on' all-gathers the ZeRO-1 params in buckets of "
+                        "--flat-bucket-mb.  Requires --fused-update on")
+    p.add_argument("--flat-bucket-mb", type=int, default=64,
+                   help="bucket budget in MiB of gathered bytes "
+                        "(--flat-resident on)")
+    p.add_argument("--dcn-data-parallel", type=int, default=1,
+                   help="accepted at 1; > 1 is refused (NCCL builds its "
+                        "own rings)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="refused above 1 (ROADMAP.md, section 1 item 14)")
+    p.add_argument("--sequence-parallel", type=int, default=1,
+                   help="refused above 1 (ROADMAP.md, section 1 item 14)")
+    p.add_argument("--remat", action="store_true",
+                   help="refused (ROADMAP.md, section 1 item 14)")
     p.add_argument("--half", action="store_true", default=True,
                    help="bf16 compute (the default)")
     p.add_argument("--no-half", dest="half", action="store_false")
@@ -196,18 +246,29 @@ def config_from_args(args: argparse.Namespace) -> Config:
                           ema_scaling_reference_batch=(
                               args.ema_scaling_reference_batch),
                           weight_initialization=args.weight_initialization,
-                          model_dir=args.model_dir),
+                          model_dir=args.model_dir, remat=args.remat),
         regularizer=RegularizerConfig(
             weight_decay=args.weight_decay,
             color_jitter_strength=args.color_jitter_strength,
-            aug_spec=args.aug_spec, polyak_ema=args.polyak_ema),
+            aug_spec=args.aug_spec, polyak_ema=args.polyak_ema,
+            convert_to_sync_bn=args.convert_to_sync_bn),
         optim=OptimConfig(lr=args.lr, warmup=args.warmup,
                           early_stop=args.early_stop,
                           accum_steps=args.accum_steps,
                           accum_bn_mode=args.accum_bn_mode,
                           fused_update=args.fused_update),
-        device=DeviceConfig(num_replicas=1,
+        device=DeviceConfig(num_replicas=args.num_replicas or world_size(),
                             workers_per_replica=args.workers_per_replica,
+                            distributed_master=args.distributed_master,
+                            distributed_rank=args.distributed_rank,
+                            distributed_port=args.distributed_port,
+                            shard_eval=args.shard_eval,
+                            model_parallel=args.model_parallel,
+                            sequence_parallel=args.sequence_parallel,
+                            dcn_data_parallel=args.dcn_data_parallel,
+                            zero1=args.zero1 or "off",
+                            flat_resident=args.flat_resident,
+                            flat_bucket_mb=args.flat_bucket_mb,
                             debug_step=args.debug_step,
                             seed=args.seed, half=args.half,
                             fault_at_step=args.fault_at_step,
@@ -220,12 +281,27 @@ def config_from_args(args: argparse.Namespace) -> Config:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    from byol_tpu_torch.core.preflight import resolve_device
+    from byol_tpu_torch.parallel import mesh
     try:
-        device = resolve_device(args.no_cuda)
+        device = mesh.local_device(args.no_cuda)
     except RuntimeError as e:
         print(f"byol_tpu_torch: {e}", file=sys.stderr)
         return 2
+    # the rendezvous precedes the config: --num-replicas 0 reads the world
+    # size (as the JAX CLI initializes before config_from_args); a failed
+    # one raises and the process exits nonzero
+    mesh.initialize_distributed(
+        device, master=args.distributed_master,
+        rank=args.distributed_rank, world_size=args.num_processes,
+        port=args.distributed_port)
+    try:
+        return _run(args, device)
+    finally:
+        mesh.shutdown()
+
+
+def _run(args: argparse.Namespace, device) -> int:
+    from byol_tpu_torch.parallel import mesh
     cfg = config_from_args(args)
     from byol_tpu_torch.data.loader import get_loader
     from byol_tpu_torch.training.trainer import fit
@@ -239,10 +315,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     except (ValueError, NotImplementedError) as e:
         print(f"byol_tpu_torch: {e}", file=sys.stderr)
         return 2
-    print(f"done: epoch {result.epoch}, test loss "
-          f"{result.test_metrics.get('loss_mean', float('nan')):.4f}, "
-          f"{result.step_ms:.1f} ms/step, {result.images_per_sec:.1f} img/s "
-          f"on {device}", flush=True)
+    primary = mesh.is_primary()
+    if primary:
+        print(f"done: epoch {result.epoch}, test loss "
+              f"{result.test_metrics.get('loss_mean', float('nan')):.4f}, "
+              f"{result.step_ms:.1f} ms/step, {result.images_per_sec:.1f} "
+              f"img/s on {device}" + (f" x {mesh.world_size()} ranks"
+                                      if mesh.is_initialized() else ""),
+              flush=True)
     if args.linear_eval:
         from byol_tpu_torch.observability.watchdog import Watchdog
         from byol_tpu_torch.training.linear_eval import \
@@ -252,7 +332,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         with Watchdog(cfg.device.watchdog_timeout) as wd:
             le = run_linear_eval_from_cfg(cfg, result.state, loader=loader,
                                           seed=cfg.device.seed, watchdog=wd)
-        print(f"linear_eval(offline): top1 {le.top1:.2f} "
-              f"top5 {le.top5:.2f} (train acc {le.train_acc:.2f}, "
-              f"{le.num_train} train / {le.num_test} test)", flush=True)
+        if primary:
+            print(f"linear_eval(offline): top1 {le.top1:.2f} "
+                  f"top5 {le.top5:.2f} (train acc {le.train_acc:.2f}, "
+                  f"{le.num_train} train / {le.num_test} test)", flush=True)
     return 0

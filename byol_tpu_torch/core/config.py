@@ -171,13 +171,20 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _refuse_unported(cfg: Config) -> None:
     """The values whose code paths the port does not have yet."""
-    if cfg.device.zero1 == "on":
-        raise _not_ported("--zero1 on", "section 1 item 10")
-    if cfg.device.flat_resident == "on":
-        raise _not_ported("--flat-resident on", "section 1 item 10")
     if cfg.device.model_parallel > 1 or cfg.device.sequence_parallel > 1:
         raise _not_ported("--model-parallel / --sequence-parallel > 1",
-                          "section 1 items 10 and 14")
+                          "section 1 item 14")
+    if cfg.device.dcn_data_parallel > 1:
+        raise _not_ported(
+            "--dcn-data-parallel > 1 (NCCL builds its own rings over NVLink "
+            "and InfiniBand; the port's data axis is one process group)",
+            "section 1 item 10")
+    if cfg.device.zero1 == "on" and cfg.optim.fused_update != "on":
+        raise _not_ported(
+            "--zero1 on with --fused-update off (the port shards the fused "
+            "update, K1a split + K1b on each rank's range of the flat "
+            "buffers; the unfused chain updates whole leaves)",
+            "section 1 item 10")
     if cfg.model.remat or cfg.model.remat_policy != "none":
         raise _not_ported("--remat / --remat-policy", "section 1 item 14")
 
@@ -201,8 +208,13 @@ def resolve(cfg: Config, *, num_train_samples: int, num_test_samples: int,
     if accum < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum}")
     if cfg.task.batch_size % (accum * n_rep) != 0:
-        raise ValueError(f"global batch {cfg.task.batch_size} not divisible "
-                         f"by accum_steps x num_replicas = {accum} x {n_rep}")
+        raise ValueError(
+            f"global batch {cfg.task.batch_size} not divisible by "
+            f"accum_steps x num_replicas = {accum} x {n_rep}: each "
+            f"replica's {cfg.task.batch_size // n_rep} rows must split "
+            f"into {accum} strided microbatches, so that JAX's strided "
+            "microbatch i of the global batch is the union over the "
+            "replicas of their own microbatch i")
     for value, allowed, what in (
             (cfg.optim.accum_bn_mode, ("average", "microbatch", "global"),
              "accum_bn_mode"),
@@ -231,6 +243,9 @@ def resolve(cfg: Config, *, num_train_samples: int, num_test_samples: int,
             raise ValueError(f"--fused-update on: {reason}")
     if cfg.device.flat_resident == "on" and cfg.optim.fused_update != "on":
         raise ValueError("--flat-resident on requires --fused-update on")
+    if cfg.device.flat_bucket_mb < 1:
+        raise ValueError(f"flat_bucket_mb must be >= 1, got "
+                         f"{cfg.device.flat_bucket_mb}")
     if cfg.task.fused_augment == "on":
         if cfg.task.augment_placement != "step":
             raise ValueError(

@@ -18,6 +18,13 @@ Two routes make the views:
 
 An on-disk ``valid/`` root wins over ``valid_fraction``, which otherwise
 holds out the JAX package's seeded split of the train files.
+
+Data parallel, as the JAX loader shards per host: rank r of w reads the
+files ``[r::w]`` of the train and valid lists (the valid split carved
+first, the same on every rank), and of the test list only under
+``shard_eval``; the native stream seed adds ``7_919 * r`` as JAX's does,
+and the ``tf`` path keys each file's draws by its index in the unsharded
+list.
 """
 from __future__ import annotations
 
@@ -66,9 +73,17 @@ def _read(path: str) -> bytes:
         return f.read()
 
 
+def shard_files(paths: List[str], labels: List[int], index: int,
+                count: int) -> Tuple[List[str], List[int]]:
+    """Rank ``index``'s interleaved share of a file list (JAX's
+    ``paths[index::count]``)."""
+    return paths[index::count], labels[index::count]
+
+
 def _native_iter(paths: List[str], labels: np.ndarray, *, batch_size: int,
                  size: int, train: bool, seed: int, strength: float,
-                 workers: int) -> Callable[[int], Iterator[dict]]:
+                 workers: int, rank: int = 0
+                 ) -> Callable[[int], Iterator[dict]]:
     """Files read on ``workers`` threads, one native call per batch."""
     from byol_tpu_torch.data import native_aug
     from byol_tpu_torch.data.loader import epoch_batches
@@ -82,7 +97,7 @@ def _native_iter(paths: List[str], labels: np.ndarray, *, batch_size: int,
                 if train:
                     v1, v2 = native_aug.jpeg_augment_two_views(
                         blobs, size, color_jitter_strength=strength,
-                        seed=seed + 1_000_003 * epoch,
+                        seed=seed + 1_000_003 * epoch + 7_919 * rank,
                         index_base=i * batch_size, num_threads=workers)
                 else:
                     v1 = v2 = native_aug.jpeg_resize_batch(
@@ -92,10 +107,11 @@ def _native_iter(paths: List[str], labels: np.ndarray, *, batch_size: int,
     return make
 
 
-def image_folder_loader(cfg: Config, *, backend: str, device="cpu"):
+def image_folder_loader(cfg: Config, *, backend: str, device="cpu",
+                        process: Tuple[int, int] = (0, 1)):
     """A LoaderBundle over the train/ and test/ (and valid/) roots;
     ``backend`` is ``'native'`` or ``'tf'``, as ``get_loader`` resolved
-    it."""
+    it; ``process`` the data axis's ``(rank, world)``."""
     from byol_tpu_torch.data.loader import (LoaderBundle, carve_valid_split,
                                             host_pipeline)
 
@@ -109,7 +125,9 @@ def image_folder_loader(cfg: Config, *, backend: str, device="cpu"):
                 "with the native library's JPEG build (libjpeg)") from e
     size = cfg.task.image_size_override or 224
     seed = cfg.device.seed
-    batch = cfg.task.batch_size
+    index, count = process
+    batch = cfg.task.batch_size // count
+    shard_eval = cfg.device.shard_eval and count > 1
     workers = cfg.device.workers_per_replica
     roots = {}
     for split in ("train", "test"):
@@ -138,28 +156,38 @@ def image_folder_loader(cfg: Config, *, backend: str, device="cpu"):
         tr_paths = [tr_paths[i] for i in tr_idx]
         tr_labels = [tr_labels[i] for i in tr_idx]
 
+    n_train, n_test, n_valid = len(tr_paths), len(te_paths), len(va_paths)
+    # each train file's index in the unsharded list keys its draws
+    draw_index = np.arange(n_train)[index::count]
+    tr_paths, tr_labels = shard_files(tr_paths, tr_labels, index, count)
+    va_paths, va_labels = shard_files(va_paths, va_labels, index, count)
+    if shard_eval:
+        te_paths, te_labels = shard_files(te_paths, te_labels, index, count)
+
     def make_iter(paths, labels, train: bool):
         labels = np.asarray(labels, np.int32)
         if backend == "native":
             return _native_iter(paths, labels, batch_size=batch, size=size,
                                 train=train, seed=seed,
                                 strength=cfg.regularizer.color_jitter_strength,
-                                workers=max(workers, 1))
+                                workers=max(workers, 1), rank=index)
         return host_pipeline(
             FileSource(paths), labels, batch_size=batch, image_size=size,
             train=train, seed=seed,
             strength=cfg.regularizer.color_jitter_strength,
             spec=cfg.regularizer.aug_spec, workers=workers,
-            pin_memory=torch.device(device).type == "cuda")
+            pin_memory=torch.device(device).type == "cuda",
+            draw_index=draw_index if train and count > 1 else None)
 
     return LoaderBundle(
         make_train_iter=make_iter(tr_paths, tr_labels, True),
         make_test_iter=make_iter(te_paths, te_labels, False),
         make_train_eval_iter=make_iter(tr_paths, tr_labels, False),
-        make_valid_iter=(make_iter(va_paths, va_labels, False) if va_paths
+        make_valid_iter=(make_iter(va_paths, va_labels, False) if n_valid
                          else None),
         input_shape=(size, size, 3),
-        num_train_samples=len(tr_paths),
-        num_test_samples=len(te_paths),
-        num_valid_samples=len(va_paths),
-        output_size=len(classes))
+        num_train_samples=n_train,
+        num_test_samples=n_test,
+        num_valid_samples=n_valid,
+        output_size=len(classes),
+        eval_sharded=shard_eval)

@@ -39,6 +39,16 @@ device (training/steps.py).  Eval batches are resized to the model size
 train split (:func:`carve_valid_split`, the JAX split), evaluated like the
 test split.  :func:`get_loader` prints one line that says which path makes
 the train views.
+
+Data parallel (parallel/mesh.py), as the JAX loader shards per host: each
+rank reads batches of ``global / world`` rows from its contiguous shard
+of the train split (:func:`shard_arrays`, JAX's ``_shard_arrays``) and of
+the valid split, which is carved identically on every rank first; the
+test split stays whole unless ``shard_eval`` (JAX's Quirk Q9), and the
+trainer deals its batches over the ranks.  A sample's host draws are
+keyed by its index in the unsharded split, so the ranks' views are
+independent; the native path mixes the rank into its stream seed as the
+JAX image_folder path does (``+ 7_919 * rank``, nothing at rank 0).
 """
 from __future__ import annotations
 
@@ -51,6 +61,7 @@ import torch
 from byol_tpu_torch.core import rng as rng_lib
 from byol_tpu_torch.core.config import Config
 from byol_tpu_torch.data import readers
+from byol_tpu_torch.parallel import mesh
 
 Batch = Dict[str, np.ndarray]
 MakeIter = Callable[[int], Iterator[Batch]]
@@ -70,6 +81,9 @@ class LoaderBundle:
     # the validation split, under the eval transform; None without one
     make_valid_iter: Optional[MakeIter] = None
     num_valid_samples: int = 0
+    # the test split was sharded over the ranks at build time (shard_eval
+    # with world > 1): eval and linear-eval extraction then need no dealing
+    eval_sharded: bool = False
 
     def set_all_epochs(self, epoch: int) -> None:
         self.epoch = epoch
@@ -130,6 +144,17 @@ def carve_valid_split(n: int, fraction: float, seed: int
     return perm[:n_valid], perm[n_valid:]
 
 
+def shard_arrays(x: np.ndarray, y: np.ndarray, index: int, count: int):
+    """Rank ``index``'s contiguous shard of ``count`` (JAX's
+    ``_shard_arrays``, the DistributedSampler analog): the tail past
+    ``count * (n // count)`` is dropped."""
+    if count == 1:
+        return x, y
+    per = len(x) // count
+    lo = index * per
+    return x[lo:lo + per], y[lo:lo + per]
+
+
 def epoch_batches(n: int, batch_size: int, seed: int, epoch: int,
                   train: bool) -> List[np.ndarray]:
     """The index batches of one epoch: train reshuffled from
@@ -161,10 +186,13 @@ class HostBatches(torch.utils.data.Dataset):
     tensors.  Picklable, so DataLoader workers may be spawned."""
 
     def __init__(self, source, labels: np.ndarray, *, size: int,
-                 train: bool, seed: int, strength: float, spec: str):
+                 train: bool, seed: int, strength: float, spec: str,
+                 draw_index: Optional[np.ndarray] = None):
         self.source, self.labels = source, labels
         self.size, self.train, self.seed = size, train, seed
         self.strength, self.spec = strength, spec
+        # each item's index in the unsharded split, which keys its draws
+        self.draw_index = draw_index
 
     def __len__(self) -> int:
         return len(self.labels)
@@ -174,8 +202,10 @@ class HostBatches(torch.utils.data.Dataset):
         epoch, take = item
         images = [self.source[int(i)] for i in take]
         if self.train:
+            keys = (take if self.draw_index is None
+                    else self.draw_index[np.asarray(take)])
             v1, v2 = (torch.from_numpy(v) for v in augment.two_views(
-                images, take, self.size, seed=self.seed, epoch=epoch,
+                images, keys, self.size, seed=self.seed, epoch=epoch,
                 strength=self.strength, spec=self.spec))
         else:
             v1 = v2 = torch.stack([augment.test_resize(im, self.size)
@@ -210,7 +240,8 @@ class EpochOrder(torch.utils.data.Sampler):
 
 def host_pipeline(source, labels: np.ndarray, *, batch_size: int,
                   image_size: int, train: bool, seed: int, strength: float,
-                  spec: str, workers: int, pin_memory: bool) -> MakeIter:
+                  spec: str, workers: int, pin_memory: bool,
+                  draw_index: Optional[np.ndarray] = None) -> MakeIter:
     """Batches of :class:`HostBatches` through a DataLoader, one item per
     batch, in :func:`epoch_batches`'s order, as numpy arrays (over pinned
     memory when ``pin_memory``).  ``workers`` worker processes are
@@ -220,7 +251,7 @@ def host_pipeline(source, labels: np.ndarray, *, batch_size: int,
     order = EpochOrder(len(labels), batch_size, seed, train)
     loader = torch.utils.data.DataLoader(
         HostBatches(source, labels, size=image_size, train=train, seed=seed,
-                    strength=strength, spec=spec),
+                    strength=strength, spec=spec, draw_index=draw_index),
         batch_size=None, sampler=order, collate_fn=_as_is,
         num_workers=workers, pin_memory=pin_memory,
         multiprocessing_context="spawn" if workers else None,
@@ -238,11 +269,12 @@ def host_pipeline(source, labels: np.ndarray, *, batch_size: int,
 
 def _native_pipeline(images: np.ndarray, labels: np.ndarray, *,
                      batch_size: int, image_size: int, train: bool,
-                     seed: int, strength: float, num_threads: int
-                     ) -> MakeIter:
+                     seed: int, strength: float, num_threads: int,
+                     rank: int = 0) -> MakeIter:
     """The C++ host pipeline: two views per image in train (the epoch
     folded into the stream seed, ``index_base`` the batch's offset in the
-    epoch, as the JAX package passes them), resize only in eval."""
+    epoch, as the JAX package passes them; ``+ 7_919 * rank`` apart per
+    rank), resize only in eval."""
     from byol_tpu_torch.data import native_aug
     labels = labels.astype(np.int32)
 
@@ -253,7 +285,7 @@ def _native_pipeline(images: np.ndarray, labels: np.ndarray, *,
             if train:
                 v1, v2 = native_aug.augment_two_views(
                     imgs, image_size, color_jitter_strength=strength,
-                    seed=seed + 1_000_003 * epoch,
+                    seed=seed + 1_000_003 * epoch + 7_919 * rank,
                     index_base=i * batch_size, num_threads=num_threads)
             else:
                 v1 = v2 = native_aug.resize_batch(imgs, image_size,
@@ -265,10 +297,10 @@ def _native_pipeline(images: np.ndarray, labels: np.ndarray, *,
 
 def _device_pipeline(images: np.ndarray, labels: np.ndarray, *,
                      batch_size: int, image_size: int, seed: int,
-                     strength: float, device) -> MakeIter:
+                     strength: float, device, rank: int = 0) -> MakeIter:
     """Train views made on ``device`` by the unfused chain from raw uint8
     batches; batch ``i`` of ``epoch`` draws from the generator of
-    (seed, epoch, i)."""
+    (seed, epoch, i), and of the rank past rank 0."""
     from byol_tpu_torch.data import device_augment as da
     labels = labels.astype(np.int32)
     device = torch.device(device)
@@ -278,7 +310,8 @@ def _device_pipeline(images: np.ndarray, labels: np.ndarray, *,
         for i, take in enumerate(epoch_batches(len(labels), batch_size, seed,
                                                epoch, True)):
             gen = torch.Generator().manual_seed(rng_lib.stream_seed(
-                seed, f"device_augment/{epoch}/{i}"))
+                seed, f"device_augment/{epoch}/{i}"
+                + (f"/rank{rank}" if rank else "")))
             views = tuple(da.view_params(gen, len(take), h, w, strength)
                           for _ in range(2))
             raw = torch.from_numpy(images[take])
@@ -381,11 +414,14 @@ def describe(backend: str, placement: str, workers: int) -> str:
 
 def get_loader(cfg: Config, *, num_fake_samples: int = 512,
                num_synth_samples: Optional[int] = None,
-               device="cpu") -> LoaderBundle:
+               device="cpu", process: Optional[Tuple[int, int]] = None
+               ) -> LoaderBundle:
     """Dispatch on ``cfg.task.task``; see the module docstring.
 
     ``device``: where the trainer runs (the ``device`` backend makes its
-    views there; the host path pins its batches for a card)."""
+    views there; the host path pins its batches for a card).
+    ``process``: ``(rank, world)`` of the data axis, default the process
+    group's (``(0, 1)`` without one)."""
     task = cfg.task.task
     if task in ("multi_augment_image_folder",
                 "dali_multi_augment_image_folder"):
@@ -394,7 +430,12 @@ def get_loader(cfg: Config, *, num_fake_samples: int = 512,
         raise ValueError(
             "--download is refused: byol_tpu_torch reads local files only; "
             f"place the dataset under --data-dir ({cfg.task.data_dir})")
-    batch = cfg.task.batch_size
+    index, count = process if process is not None else mesh.process_info()
+    if cfg.task.batch_size % count:
+        raise ValueError(f"global batch {cfg.task.batch_size} not divisible "
+                         f"by the world size {count}")
+    batch = cfg.task.batch_size // count
+    shard_eval = cfg.device.shard_eval and count > 1
     backend = resolve_backend(cfg, task)
     placement = cfg.task.augment_placement
     workers = cfg.device.workers_per_replica
@@ -402,10 +443,12 @@ def get_loader(cfg: Config, *, num_fake_samples: int = 512,
     cj = cfg.regularizer.color_jitter_strength
     spec = cfg.regularizer.aug_spec
     pin = torch.device(device).type == "cuda"
-    print(describe(backend, placement, workers), flush=True)
+    if index == 0:
+        print(describe(backend, placement, workers), flush=True)
     if task == "image_folder":
         from byol_tpu_torch.data.imagefolder import image_folder_loader
-        return image_folder_loader(cfg, backend=backend, device=device)
+        return image_folder_loader(cfg, backend=backend, device=device,
+                                   process=(index, count))
 
     if num_synth_samples is None:
         num_synth_samples = cfg.task.num_synth_samples or 20_000
@@ -439,18 +482,31 @@ def get_loader(cfg: Config, *, num_fake_samples: int = 512,
         x_va, y_va = x_tr[va_idx], y_tr[va_idx]
         x_tr, y_tr = x_tr[tr_idx], y_tr[tr_idx]
 
+    n_train, n_test = len(x_tr), len(x_te)
+    # the rank's shards; the valid split was carved above, the same on
+    # every rank
+    per = n_train // count
+    draw_index = np.arange(index * per, (index + 1) * per)
+    x_tr, y_tr = shard_arrays(x_tr, y_tr, index, count)
+    if n_valid:
+        x_va, y_va = shard_arrays(x_va, y_va, index, count)
+    if shard_eval:
+        x_te, y_te = shard_arrays(x_te, y_te, index, count)
+
     def host(images, labels, train):
         # the eval transform of an in-memory image is one resize: cheaper
         # in this process than a worker's start-up and a batch's transfer
         return host_pipeline(
             ArraySource(images), labels, batch_size=batch, image_size=size,
             train=train, seed=seed, strength=cj, spec=spec,
-            workers=workers if train else 0, pin_memory=pin)
+            workers=workers if train else 0, pin_memory=pin,
+            draw_index=draw_index if train and count > 1 else None)
 
     def native(images, labels, train):
         return _native_pipeline(images, labels, batch_size=batch,
                                 image_size=size, train=train, seed=seed,
-                                strength=cj, num_threads=max(workers, 1))
+                                strength=cj, num_threads=max(workers, 1),
+                                rank=index)
 
     evaluate = native if backend == "native" else host
     if placement == "step":
@@ -458,7 +514,7 @@ def get_loader(cfg: Config, *, num_fake_samples: int = 512,
     elif backend == "device":
         make_train = _device_pipeline(x_tr, y_tr, batch_size=batch,
                                       image_size=size, seed=seed,
-                                      strength=cj, device=device)
+                                      strength=cj, device=device, rank=index)
     else:
         make_train = evaluate(x_tr, y_tr, True)
     return LoaderBundle(
@@ -467,8 +523,9 @@ def get_loader(cfg: Config, *, num_fake_samples: int = 512,
         make_train_eval_iter=evaluate(x_tr, y_tr, False),
         make_valid_iter=evaluate(x_va, y_va, False) if n_valid else None,
         input_shape=(size, size, 3),
-        num_train_samples=len(x_tr),
-        num_test_samples=len(x_te),
+        num_train_samples=n_train,
+        num_test_samples=n_test,
         num_valid_samples=n_valid,
-        output_size=n_classes)
+        output_size=n_classes,
+        eval_sharded=shard_eval)
 

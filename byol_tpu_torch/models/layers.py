@@ -12,6 +12,12 @@
   BIASED batch variance in the running update (torch's own update uses the
   unbiased one), and a switch that normalises with batch statistics
   without updating the running ones (the target network's forward).
+  Inside a process group of world > 1 (or with ``sync`` set) the train-mode
+  statistics are the global batch's, as under JAX's GSPMD step: flax's
+  ``_compute_stats`` (E[x] and E[x^2] all-reduced in one collective, the
+  variance max(0, E[x^2] - E[x]^2)) with the gradient flowing through the
+  all-reduce; not ``nn.SyncBatchNorm``, whose running variance is the
+  unbiased one.
 - :func:`init_params` draws flax's initializers (lecun_normal kernels, or
   he_normal for the ResNet convs; zero biases; unit LayerNorm/BatchNorm
   scales, or zero where a block's last BN is zero-initialised) from an
@@ -20,10 +26,14 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from byol_tpu_torch.parallel.collectives import psum
+from byol_tpu_torch.parallel.mesh import world_size
 
 # stddev of a unit normal truncated to [-2, 2]: lecun_normal divides by it
 # so that the truncated draw keeps variance 1/fan_in
@@ -93,6 +103,10 @@ class BatchNorm(nn.Module):
     - Eval mode normalises with the running statistics.
     - Statistics and the output are float32 whatever the input dtype (flax
       promotes a bf16 input against its float32 scale).
+    - ``sync`` (None: when the world is > 1): train-mode statistics over
+      every rank's rows (:meth:`_synced`).  At world 1 the class keeps the
+      one-device code path.  JAX's ``convert_to_sync_bn`` changes nothing
+      here, as in JAX, where GSPMD syncs the statistics either way.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9,
@@ -101,6 +115,7 @@ class BatchNorm(nn.Module):
         self.momentum, self.eps = momentum, eps
         self.zero_init = zero_init            # init_params: scale 0, not 1
         self.update_stats = True
+        self.sync: Optional[bool] = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -117,6 +132,9 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps)
+        sync = self.sync if self.sync is not None else world_size() > 1
+        if sync:
+            return self._synced(x)
         if not self.update_stats:
             return F.batch_norm(x, None, None, self.weight, self.bias, True,
                                 0.0, self.eps)
@@ -132,6 +150,26 @@ class BatchNorm(nn.Module):
             m = self.momentum
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.running_var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
+        return y
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the global batch: per-channel sums of x and x^2
+        all-reduced (differentiable), flax's mean and biased variance, and
+        the running statistics ticked with them."""
+        c = x.shape[1]
+        axes = [d for d in range(x.ndim) if d != 1]
+        count = x.numel() // c * world_size()
+        sums = psum(torch.stack([x.sum(axes), (x * x).sum(axes)]))
+        mean = sums[0] / count
+        var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
         return y
 
 

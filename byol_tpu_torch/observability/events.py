@@ -31,7 +31,7 @@ import math
 import os
 import sys
 import time
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 
@@ -173,11 +173,16 @@ class RunLog:
     caller bugs.
     """
 
-    def __init__(self, path: str, *, best_effort: bool = False) -> None:
+    def __init__(self, path: Optional[str], *,
+                 best_effort: bool = False) -> None:
+        """``path`` None: a log that validates every event and writes
+        none (a data-parallel rank other than 0)."""
         self.path = path
         self.best_effort = best_effort
-        self.disabled = False
+        self.disabled = path is None
         self._f = None
+        if path is None:
+            return
         try:
             parent = os.path.dirname(path)
             if parent:

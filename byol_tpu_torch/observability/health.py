@@ -32,7 +32,7 @@ the only writers and readers of the layout:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -157,7 +157,9 @@ def unpack(vec: Any) -> Dict[str, float]:
 def health_stats(*, grads: Tensors, update_norm: torch.Tensor,
                  params: Tensors, target_params: Tensors, loss: torch.Tensor,
                  collapse: Tuple[torch.Tensor, torch.Tensor],
-                 trust_ratios: torch.Tensor) -> torch.Tensor:
+                 trust_ratios: torch.Tensor,
+                 grad_stats: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                 = None) -> torch.Tensor:
     """The packed health vector of one optimizer step.
 
     ``update_norm`` is the norm of the applied update: the train step
@@ -166,15 +168,19 @@ def health_stats(*, grads: Tensors, update_norm: torch.Tensor,
     update tree).  ``collapse`` is ``collapse_stats`` of the stop-grad
     target projections, mean-accumulated over the microbatches;
     ``trust_ratios`` the ratios the update applied to the adapted leaves
-    (K1a's own under the fused update).  The result is a fresh tensor,
-    never a view of the state."""
+    (K1a's own under the fused update).  ``grad_stats`` (the gradient's
+    norm and non-finite count) replaces what ``grads`` would give where
+    the averaged gradient lives on the ranks' ranges (ZeRO-1).  The result
+    is a fresh tensor, never a view of the state."""
     param_norm = global_norm(params)
     drift = global_norm([p.float() - t.float() for p, t in
                          zip(_leaves(params), _leaves(target_params))])
     feature_std, cosine_mean = collapse
     tr = trust_ratios.float()
+    grad_norm, grad_nonfinite = (grad_stats if grad_stats is not None else
+                                 (global_norm(grads), nonfinite_count(grads)))
     return pack({
-        "grad_norm": global_norm(grads),
+        "grad_norm": grad_norm,
         "update_norm": update_norm,
         "param_norm": param_norm,
         "ema_drift": drift,
@@ -184,6 +190,6 @@ def health_stats(*, grads: Tensors, update_norm: torch.Tensor,
         "trust_max": tr.max(),
         "collapse_feature_std": feature_std,
         "collapse_cosine_mean": cosine_mean,
-        "nonfinite_count": nonfinite_count(_leaves(grads) + [loss]),
+        "nonfinite_count": grad_nonfinite + nonfinite_count(loss),
         "loss": loss,
     })

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,6 +57,19 @@ class MetricAccumulator:
         denom = (float(self._weight) if self._weight is not None
                  else float(self.count))
         return {k: float(v) / denom for k, v in self._sum.items()}
+
+    def all_reduce(self, keys: Sequence[str], device) -> None:
+        """Sum the running sums and weights over the data axis's ranks,
+        each of which accumulated its own batches (eval); a rank that had
+        none adds zeros.  Every rank then holds the global means."""
+        from byol_tpu_torch.parallel.collectives import psum_
+        zero = torch.zeros((), device=device)
+        weight = self._weight if self._weight is not None else (
+            torch.tensor(float(self.count), device=device))
+        vec = psum_(torch.stack([self._sum.get(k, zero).float().reshape(())
+                                 for k in keys] + [weight.float()]))
+        self._sum = dict(zip(keys, vec[:-1].unbind()))
+        self._weight = vec[-1]
 
     def total_weight(self) -> Optional[float]:
         """Total valid rows when the metrics carried ``_weight``."""

@@ -28,6 +28,17 @@
 // 16-byte accesses and one pass each; the row-partial round trip of K1a
 // (8 bytes a row, 2.2 MB) and the per-segment reduction are small beside
 // the 280 MB stream.
+//
+// K1a split (the ZeRO-1 update, byol_tpu/ops/fused_update.py:417): JAX
+// all-reduces the per-segment partial sums over the data axis between the
+// norm pass and the trust ratio, which K1a computes in one launch.  So K1a
+// also has two entries of its own: byol_segment_sums runs pass 1 and the
+// per-segment float64 reduce over one rank's range of rows, stopped before
+// the square root, and byol_segment_epilogue turns the summed (nseg, 2)
+// sums into norms and scales with the fused reduce's own arithmetic; the
+// caller all-reduces the sums between them.  K1b then runs unchanged on
+// the range.  Bound at 35,089,024 elements over W ranks: the range's p and
+// g, 280.7 / W MB -> 0.084 / W ms; the epilogue reads 173 x 16 bytes.
 #include <cuda_runtime.h>
 
 namespace {
@@ -62,18 +73,13 @@ row_norms_kernel(const float4* __restrict__ p, const float4* __restrict__ g,
   if (lane == 0) row_partial[row] = make_float2(pp, gg);
 }
 
-__global__ void __launch_bounds__(kReduceThreads)
-segment_reduce_kernel(const float2* __restrict__ row_partial,
-                      const int* __restrict__ seg_row_start,
-                      const int* __restrict__ seg_adapted,
-                      float* __restrict__ seg_norms,
-                      float* __restrict__ seg_scale, float trust_coef,
-                      float eps) {
-  __shared__ double sp[kReduceThreads];
-  __shared__ double sg[kReduceThreads];
-  const int s = blockIdx.x;
+// The block's sums of the rows [lo, hi) of row_partial, in float64: each
+// thread over a fixed stride, then a fixed shared-memory tree.  Every
+// thread returns with the totals in sp[0], sg[0].
+__device__ __forceinline__ void block_segment_sums(
+    const float2* __restrict__ row_partial, int lo, int hi, double* sp,
+    double* sg) {
   const int tid = threadIdx.x;
-  const int lo = seg_row_start[s], hi = seg_row_start[s + 1];
   double pp = 0.0, gg = 0.0;
   for (int r = lo + tid; r < hi; r += kReduceThreads) {
     const float2 v = row_partial[r];
@@ -91,15 +97,75 @@ segment_reduce_kernel(const float2* __restrict__ row_partial,
     }
     __syncthreads();
   }
-  if (tid == 0) {
-    const float pn = static_cast<float>(sqrt(sp[0]));
-    const float gn = static_cast<float>(sqrt(sg[0]));
-    seg_norms[2 * s] = pn;
-    seg_norms[2 * s + 1] = gn;
-    const float ratio =
-        (pn > 0.0f && gn > 0.0f) ? trust_coef * pn / (gn + eps) : 1.0f;
-    seg_scale[s] = seg_adapted[s] ? ratio : 1.0f;
+}
+
+// Segment s's norms and applied trust scale from its float64 sums: the
+// ratio is 1 unless both norms are > 0, the scale 1 on excluded segments.
+__device__ __forceinline__ void finish_segment(
+    double sum_p, double sum_g, int s, const int* __restrict__ seg_adapted,
+    float* __restrict__ seg_norms, float* __restrict__ seg_scale,
+    float trust_coef, float eps) {
+  const float pn = static_cast<float>(sqrt(sum_p));
+  const float gn = static_cast<float>(sqrt(sum_g));
+  seg_norms[2 * s] = pn;
+  seg_norms[2 * s + 1] = gn;
+  const float ratio =
+      (pn > 0.0f && gn > 0.0f) ? trust_coef * pn / (gn + eps) : 1.0f;
+  seg_scale[s] = seg_adapted[s] ? ratio : 1.0f;
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
+segment_reduce_kernel(const float2* __restrict__ row_partial,
+                      const int* __restrict__ seg_row_start,
+                      const int* __restrict__ seg_adapted,
+                      float* __restrict__ seg_norms,
+                      float* __restrict__ seg_scale, float trust_coef,
+                      float eps) {
+  __shared__ double sp[kReduceThreads];
+  __shared__ double sg[kReduceThreads];
+  const int s = blockIdx.x;
+  block_segment_sums(row_partial, seg_row_start[s], seg_row_start[s + 1], sp,
+                     sg);
+  if (threadIdx.x == 0)
+    finish_segment(sp[0], sg[0], s, seg_adapted, seg_norms, seg_scale,
+                   trust_coef, eps);
+}
+
+// K1a split, first half: block s reduces local segment s of a row range
+// (rows [seg_row_start[s], seg_row_start[s + 1]) of the range) and writes
+// its float64 sums at its global id.  Segments outside the range keep the
+// zeros the entry sets, so the all-reduce of the (nseg, 2) sums over the
+// ranks' ranges gives every segment's sums over the whole buffer.
+__global__ void __launch_bounds__(kReduceThreads)
+segment_sums_kernel(const float2* __restrict__ row_partial,
+                    const int* __restrict__ seg_row_start,
+                    const int* __restrict__ seg_ids,
+                    double* __restrict__ seg_sums) {
+  __shared__ double sp[kReduceThreads];
+  __shared__ double sg[kReduceThreads];
+  const int s = blockIdx.x;
+  block_segment_sums(row_partial, seg_row_start[s], seg_row_start[s + 1], sp,
+                     sg);
+  if (threadIdx.x == 0) {
+    const int id = seg_ids[s];
+    seg_sums[2 * id] = sp[0];
+    seg_sums[2 * id + 1] = sg[0];
   }
+}
+
+// K1a split, second half: one thread per segment turns the (all-reduced)
+// float64 sums into norms and scales with segment_reduce_kernel's own
+// arithmetic, so one rank's split path equals the fused K1a bit for bit.
+__global__ void __launch_bounds__(kReduceThreads)
+segment_epilogue_kernel(const double* __restrict__ seg_sums,
+                        const int* __restrict__ seg_adapted,
+                        float* __restrict__ seg_norms,
+                        float* __restrict__ seg_scale, int nseg,
+                        float trust_coef, float eps) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= nseg) return;
+  finish_segment(seg_sums[2 * s], seg_sums[2 * s + 1], s, seg_adapted,
+                 seg_norms, seg_scale, trust_coef, eps);
 }
 
 __device__ __forceinline__ void apply_one(float& p, float g, float& m,
@@ -168,6 +234,50 @@ extern "C" int byol_segment_norms(const float* p, const float* g,
   segment_reduce_kernel<<<nseg, kReduceThreads, 0, s>>>(
       reinterpret_cast<const float2*>(row_partial), seg_row_start,
       seg_adapted, seg_norms, seg_scale, trust_coef, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1a split, first half, on a range of rows: p, g (rows, 128) fp32, the
+// range's rows; row_seg (rows,) int32 global segment ids; seg_wd (nseg,);
+// seg_row_start (nloc + 1,) int32 range-relative; seg_ids (nloc,) int32;
+// row_partial (rows, 2) fp32 scratch; out seg_sums (nseg, 2) float64 =
+// (sum p^2, sum (g + wd p)^2), zero on segments outside the range.
+extern "C" int byol_segment_sums(const float* p, const float* g,
+                                 const int* row_seg, const float* seg_wd,
+                                 const int* seg_row_start, const int* seg_ids,
+                                 float* row_partial, double* seg_sums,
+                                 int rows, int nloc, int nseg, void* stream) {
+  if (rows < 0 || nloc < 0 || nseg <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(
+      seg_sums, 0, sizeof(double) * 2 * static_cast<size_t>(nseg), s);
+  if (err != cudaSuccess || rows == 0) return static_cast<int>(err);
+  const int rows_per_block = kRowThreads / 32;
+  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
+  row_norms_kernel<<<blocks, kRowThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(p), reinterpret_cast<const float4*>(g),
+      row_seg, seg_wd, reinterpret_cast<float2*>(row_partial), rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  segment_sums_kernel<<<nloc, kReduceThreads, 0, s>>>(
+      reinterpret_cast<const float2*>(row_partial), seg_row_start, seg_ids,
+      seg_sums);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1a split, second half: seg_sums (nseg, 2) float64 -> seg_norms (nseg, 2)
+// and seg_scale (nseg,) fp32, as byol_segment_norms computes them.
+extern "C" int byol_segment_epilogue(const double* seg_sums,
+                                     const int* seg_adapted, float* seg_norms,
+                                     float* seg_scale, int nseg,
+                                     float trust_coef, float eps,
+                                     void* stream) {
+  if (nseg <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (nseg + kReduceThreads - 1) / kReduceThreads;
+  segment_epilogue_kernel<<<blocks, kReduceThreads, 0, s>>>(
+      seg_sums, seg_adapted, seg_norms, seg_scale, nseg, trust_coef, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
 """Wiring: resolved config -> net, train state, steps (counterpart of
-byol_tpu/training/build.py), on one device: no mesh and no compile plan."""
+byol_tpu/training/build.py), on this rank's device, laid out by the
+compile plan (parallel/compile_plan.py: the world, ZeRO-1)."""
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
@@ -13,6 +14,7 @@ from byol_tpu_torch.models.byol_net import BYOLNet, build_byol_net
 from byol_tpu_torch.models.init import apply_weight_init
 from byol_tpu_torch.models.registry import get_spec
 from byol_tpu_torch.optim.factory import build_optimizer
+from byol_tpu_torch.parallel.compile_plan import CompilePlan
 from byol_tpu_torch.training.state import TrainState, create_train_state
 from byol_tpu_torch.training.steps import (StepConfig, make_eval_step,
                                            make_train_step)
@@ -97,13 +99,16 @@ def step_config(rcfg: ResolvedConfig) -> StepConfig:
 
 
 def setup_training(rcfg: ResolvedConfig, device,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   plan: Optional[CompilePlan] = None
                    ) -> Tuple[BYOLNet, TrainState, Callable, Callable,
                               Callable[[int], float]]:
     """Returns (net, state, train_step, eval_step, lr_schedule): the net
     built on ``device``, its kernels drawn again under
     ``--weight-initialization`` (from the ``weight_init`` stream of
-    ``cfg.device.seed``), and flattened into the train state."""
+    ``cfg.device.seed``), and flattened into the train state, which
+    ``plan`` (default: one rank, no ZeRO-1) prepares: rank 0's weights on
+    every rank, and under ZeRO-1 the momentum cut to the rank's range."""
     cfg = rcfg.cfg
     policy = get_policy(cfg.device.half)
     net = build_net(rcfg, generator)
@@ -112,8 +117,11 @@ def setup_training(rcfg: ResolvedConfig, device,
             net, split_named(cfg.device.seed, ("weight_init",))["weight_init"],
             cfg.model.weight_initialization)
     net = net.to(device)
+    plan = plan if plan is not None else CompilePlan()
     state = create_train_state(net, ema_init_mode=cfg.parity.ema_init_mode,
-                               polyak_ema=cfg.regularizer.polyak_ema)
+                               polyak_ema=cfg.regularizer.polyak_ema,
+                               pad_rows_to=plan.pad_rows_to)
+    plan.prepare(state, weight_decay=cfg.regularizer.weight_decay)
     tx, schedule = build_tx(rcfg)
     scfg = step_config(rcfg)
     return (net, state, make_train_step(tx, scfg, schedule, policy),

@@ -14,14 +14,19 @@ Counterpart of byol_tpu/training/linear_eval.py on one card:
   The features stay in host memory and reach the card one minibatch at a
   time, as in JAX: at ImageNet scale they are ~10 GB.
 
-Multi-process extraction over a mesh (JAX's ``encoder_extractor_spmd`` and
-``extract_features_spmd``) comes with multi-GPU (ROADMAP.md, section 1
-item 10): :func:`run_linear_eval_from_cfg` refuses a ``mesh``.
+Data parallel (JAX's ``encoder_extractor_spmd`` and
+``extract_features_spmd``): each rank extracts its share, its shard of a
+split or, where every rank holds the whole split (the test split without
+``--shard-eval``), the batches ``islice(rank, None, world)``, in
+lockstep; each round's features are all-gathered and put in the global
+order, and the probe fits on the gathered features identically on every
+rank.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
@@ -269,6 +274,91 @@ def encoder_apply_fn(net, state, *, half: bool = False,
     return apply
 
 
+def encoder_extractor_spmd(net, state, *, half: bool = False,
+                           normalize: bool = False) -> Callable:
+    """The frozen encoder of one rank for :func:`extract_features_spmd`:
+    host images (B, H, W, C) -> fp32 features (B, D) left on the state's
+    device, where the all-gather reads them.  It reads the online params
+    and BatchNorm statistics, which every layout keeps whole."""
+    device = state.params.device
+    net = net.to(device)
+    net.load_state_dict({**state.tree(state.params), **state.batch_stats()},
+                        strict=True)
+    represent = frozen_representation_fn(store_in_compute_dtype(net),
+                                         half=half, normalize=normalize)
+
+    def apply(x: np.ndarray) -> torch.Tensor:
+        return represent(torch.from_numpy(np.ascontiguousarray(x)).to(
+            device))
+
+    return apply
+
+
+def extract_features_spmd(apply_fn: Callable,
+                          batches: Iterator[Dict[str, Any]], *,
+                          host_batch: int, view: str = "view1",
+                          replicated_data: bool = False,
+                          sample_shape: Optional[Tuple[int, ...]] = None,
+                          watchdog: Optional[Any] = None
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Extraction over the data axis: every rank runs this in lockstep on
+    its share and gets the same (features, labels) of every rank.
+
+    Each round, each rank pads its batch to ``host_batch`` rows (all pad
+    where it has drained: the zero images of ``sample_shape``), encodes
+    it, and the round's features and labels (-1 on pad rows) are
+    all-gathered.  ``replicated_data``: every rank iterates the SAME
+    batches (the whole test split), dealt round-robin, so each is encoded
+    once; the result is then in batch order, round by round.  Otherwise
+    each rank holds a shard and the result is rank 0's rows, then rank
+    1's: for the contiguous shards of the array loaders, the unsharded
+    order.  A rank whose iterator raises fails every rank
+    (parallel/lockstep.py)."""
+    from byol_tpu_torch.parallel import collectives, mesh
+    from byol_tpu_torch.parallel.lockstep import lockstep_iter
+    rank, world = mesh.process_info()
+    it = iter(batches)
+    if replicated_data and world > 1:
+        it = itertools.islice(it, rank, None, world)
+    rounds = []                      # per round: (world * B, D), (world * B,)
+    for batch in lockstep_iter(it, lambda: None):
+        if watchdog is not None:
+            watchdog.pet()
+        if batch is None:
+            if sample_shape is None:
+                raise ValueError("extract_features_spmd: a rank drained "
+                                 "early and has no sample_shape to pad "
+                                 "from")
+            x = np.zeros((0,) + tuple(sample_shape), np.float32)
+            y = np.zeros((0,), np.int64)
+        else:
+            x = np.asarray(batch[view])
+            y = np.asarray(batch["label"], np.int64)
+        n = len(y)
+        if n > host_batch:
+            raise ValueError(f"batch of {n} rows > host_batch {host_batch}")
+        x = np.concatenate([x, np.zeros((host_batch - n,) + x.shape[1:],
+                                        x.dtype)])
+        f = apply_fn(x).float()
+        labels = torch.full((host_batch,), -1, dtype=torch.int64,
+                            device=f.device)
+        labels[:n] = torch.from_numpy(y).to(f.device)
+        rounds.append((collectives.all_gather(f.contiguous()).cpu(),
+                       collectives.all_gather(labels).cpu()))
+    if not rounds:
+        raise ValueError("extraction produced no features: every rank's "
+                         "iterator was empty")
+    feats = torch.stack([f for f, _ in rounds]).view(
+        len(rounds), world, host_batch, -1)
+    labels = torch.stack([y for _, y in rounds]).view(len(rounds), world,
+                                                      host_batch)
+    if not replicated_data:          # rank-major: each rank's shard whole
+        feats, labels = feats.transpose(0, 1), labels.transpose(0, 1)
+    keep = labels.reshape(-1) >= 0
+    return (feats.reshape(-1, feats.shape[-1])[keep].numpy(),
+            labels.reshape(-1)[keep].numpy().astype(np.int32))
+
+
 def run_linear_eval_from_cfg(cfg, state, *, loader=None, mesh=None,
                              epochs: int = 30, seed: int = 0,
                              watchdog: Optional[Any] = None
@@ -276,16 +366,15 @@ def run_linear_eval_from_cfg(cfg, state, *, loader=None, mesh=None,
     """Convenience entry point: rebuild the encoder from ``cfg``, extract
     resize-only features for the train/test splits, fit + score the probe
     on the state's device.  ``loader`` is the training run's bundle (built
-    from ``cfg`` when not given)."""
+    from ``cfg`` when not given).  Inside a process group (or given a
+    ``mesh``, parallel/mesh.py::MeshSpec) every rank calls it: the
+    extraction is :func:`extract_features_spmd`'s, and every rank fits the
+    same probe on the gathered features."""
     from byol_tpu_torch.core.config import resolve
     from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.parallel import mesh as mesh_lib
     from byol_tpu_torch.training.build import build_net
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "linear eval over a mesh (multi-process extraction) comes with "
-            "multi-GPU, ROADMAP.md section 1 item 10; the port extracts on "
-            "one card (mesh=None)")
     device = state.params.device
     if loader is None:
         loader = get_loader(cfg, device=device)
@@ -293,10 +382,37 @@ def run_linear_eval_from_cfg(cfg, state, *, loader=None, mesh=None,
                    num_test_samples=loader.num_test_samples,
                    output_size=loader.output_size,
                    input_shape=loader.input_shape)
-    apply_fn = encoder_apply_fn(build_net(rcfg), state,
-                                half=cfg.device.half,
-                                normalize=cfg.parity.normalize_inputs)
-    return linear_eval(apply_fn, loader.train_eval_loader,
-                       loader.test_loader, loader.output_size,
-                       epochs=epochs, seed=seed, watchdog=watchdog,
-                       device=device)
+    if mesh is None and not mesh_lib.is_initialized():
+        apply_fn = encoder_apply_fn(build_net(rcfg), state,
+                                    half=cfg.device.half,
+                                    normalize=cfg.parity.normalize_inputs)
+        return linear_eval(apply_fn, loader.train_eval_loader,
+                           loader.test_loader, loader.output_size,
+                           epochs=epochs, seed=seed, watchdog=watchdog,
+                           device=device)
+    if mesh is not None:
+        mesh.resolved()              # the data axis is the world
+    apply_fn = encoder_extractor_spmd(build_net(rcfg), state,
+                                      half=cfg.device.half,
+                                      normalize=cfg.parity.normalize_inputs)
+    host_batch = mesh_lib.local_rows(rcfg.global_batch_size)
+    train_x, train_y = extract_features_spmd(
+        apply_fn, loader.train_eval_loader, host_batch=host_batch,
+        sample_shape=loader.input_shape, watchdog=watchdog)
+    # the whole test split on every rank (Quirk Q9) is dealt round-robin;
+    # a sharded one is extracted shard by shard
+    test_x, test_y = extract_features_spmd(
+        apply_fn, loader.test_loader, host_batch=host_batch,
+        replicated_data=not loader.eval_sharded,
+        sample_shape=loader.input_shape, watchdog=watchdog)
+    if len(test_y) != loader.num_test_samples:
+        raise ValueError(
+            f"linear eval gathered {len(test_y)} test samples but the "
+            f"loader reports num_test_samples={loader.num_test_samples}: "
+            f"the bundle's eval_sharded flag ({loader.eval_sharded}) does "
+            "not match how its test iterator is sharded")
+    if watchdog is not None:
+        watchdog.stop()
+    return fit_and_score(train_x, train_y, test_x, test_y,
+                         loader.output_size, epochs=epochs, seed=seed,
+                         device=device)

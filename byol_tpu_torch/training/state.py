@@ -46,7 +46,7 @@ import torch
 from torch import nn
 
 from byol_tpu_torch.models.layers import BatchNorm
-from byol_tpu_torch.ops.fused_update import (SegmentMap, pack_flat,
+from byol_tpu_torch.ops.fused_update import (LANES, SegmentMap, pack_flat,
                                              segment_map_for, unpack_flat)
 
 
@@ -66,6 +66,9 @@ class TrainState:
     ema_step: int = 0              # tau schedule counter
     polyak: Optional[torch.Tensor] = None      # under polyak_ema > 0
     polyak_net: Optional[nn.Module] = None     # parameters: views of polyak
+    # under --zero1 on: the rank's range (parallel/zero1.py::Zero1Context),
+    # and ``momentum`` holds that range only
+    zero1: Optional[Any] = None
 
     def leaves(self, buf: torch.Tensor) -> List[torch.Tensor]:
         """Views of ``buf`` in the parameters' shapes, in segment order."""
@@ -115,10 +118,13 @@ def _shadow_net(net: nn.Module, names: Sequence[str], shapes,
 
 @torch.no_grad()
 def create_train_state(net: nn.Module, *, ema_init_mode: str = "copy",
-                       polyak_ema: float = 0.0) -> TrainState:
+                       polyak_ema: float = 0.0,
+                       pad_rows_to: int = 1) -> TrainState:
     """Flatten ``net`` (already on its device) into the flat buffers and
     build its target network (and, under ``polyak_ema > 0``, its Polyak
-    net, starting as a copy of the params)."""
+    net, starting as a copy of the params).  ``pad_rows_to``: the buffers
+    hold a multiple of this many 128-element rows, zeros past the last
+    segment (ZeRO-1 cuts them into equal ranges)."""
     if ema_init_mode not in ("copy", "reference"):
         raise ValueError(f"unknown ema_init_mode {ema_init_mode!r}")
     params = dict(net.named_parameters())
@@ -127,6 +133,10 @@ def create_train_state(net: nn.Module, *, ema_init_mode: str = "copy",
     shapes = tuple(p.shape for p in leaves)
     seg = segment_map_for(leaves)
     p_buf = pack_flat(leaves, seg)
+    rows = -(-seg.num_rows // pad_rows_to) * pad_rows_to
+    if rows != seg.num_rows:
+        p_buf = torch.cat([p_buf, p_buf.new_zeros(
+            (rows - seg.num_rows) * LANES)])
     g_buf = torch.zeros_like(p_buf)
     m_buf = torch.zeros_like(p_buf)
     t_buf = p_buf.clone() if ema_init_mode == "copy" else 0.004 * p_buf
@@ -143,10 +153,13 @@ def create_train_state(net: nn.Module, *, ema_init_mode: str = "copy",
                       polyak=polyak, polyak_net=polyak_net)
 
 
-def _buffers(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
-    """The named flat buffers a checkpoint carries, Polyak's when on."""
+def _buffers(state: TrainState,
+             momentum: torch.Tensor) -> List[Tuple[str, torch.Tensor]]:
+    """The named flat buffers a checkpoint carries, Polyak's when on, with
+    ``momentum`` the whole momentum buffer (under ZeRO-1 the state holds
+    its rank's range only)."""
     out = [("params", state.params), ("target", state.target),
-           ("momentum", state.momentum)]
+           ("momentum", momentum)]
     if state.polyak is not None:
         out.append(("polyak", state.polyak))
     return out
@@ -161,7 +174,9 @@ def _load(state: TrainState, trees: Mapping[str, Mapping[str, Any]],
     if "polyak" in trees and state.polyak is None:
         raise ValueError(f"{what}: the tree carries polyak, and this state "
                          "has no Polyak average (polyak_ema is 0)")
-    for key, buf in _buffers(state):
+    momentum = (state.momentum if state.zero1 is None
+                else torch.zeros_like(state.params))
+    for key, buf in _buffers(state, momentum):
         if key not in trees:
             raise ValueError(f"{what}: the tree has no {key!r}, which this "
                              "state needs")
@@ -176,6 +191,9 @@ def _load(state: TrainState, trees: Mapping[str, Mapping[str, Any]],
                                  f"{tuple(src.shape)}, the state "
                                  f"{tuple(view.shape)}")
             view.copy_(src)
+    if state.zero1 is not None:
+        # the rank keeps its range of the momentum
+        state.momentum.copy_(state.zero1.shard_of(momentum))
     own = state.batch_stats()
     if set(stats) != set(own):
         raise ValueError(f"{what}: BatchNorm statistics differ at "
@@ -214,7 +232,11 @@ def canonical_state(state: TrainState) -> Dict[str, Any]:
     the tree while it is written."""
     out: Dict[str, Any] = {"format": CANONICAL_FORMAT, "step": state.step,
                            "count": state.count, "ema_step": state.ema_step}
-    for key, buf in _buffers(state):
+    # under ZeRO-1 the whole momentum is gathered from the ranks' shards:
+    # a collective, which every rank runs
+    momentum = (state.momentum if state.zero1 is None
+                else state.zero1.gather_momentum(state.momentum))
+    for key, buf in _buffers(state, momentum):
         # one copy of the whole buffer, then views in the leaves' shapes
         out[key] = state.tree(buf.to("cpu", copy=True))
     out["batch_stats"] = {name: buf.to("cpu", copy=True)

@@ -56,6 +56,28 @@ target, the trust ratios the update applied (K1a's own under
 loss.  With ``telemetry='off'`` none of it runs and ``metrics`` has
 today's five keys.
 
+Data parallel (parallel/): inside a process group every rank runs this
+step on its rows of the global batch (``L = global / world``), and the
+step computes what the JAX package's GSPMD step computes on the global
+batch, where every mean over the batch is a global mean:
+
+- BatchNorm statistics span the ranks at world > 1
+  (models/layers.py::BatchNorm), and so do the reference loss's
+  Frobenius norms (objectives/byol_loss.py), both differentiably;
+- under step placement each rank draws for the GLOBAL microbatch and
+  keeps its rows, so its views are the rows JAX makes at the same global
+  positions (rank r's strided microbatch i is block r of the global
+  microbatch i, given ``L % k == 0``);
+- ONE all-reduce (mean) of the flat gradient buffer per optimizer step,
+  after the last microbatch's backward (not DDP: the gradients already
+  sit in one flat buffer), or under ZeRO-1 its reduce-scatter and the
+  sharded update (parallel/zero1.py);
+- the metrics are all-reduced to their global means, and the health
+  vector's norms and collapse signature are the global batch's.
+
+Without a process group (one card) none of these collectives runs, and the
+step is the one-device step it always was.
+
 lr and tau are computed on the host from the schedule count and
 ``ema_step``, the augmentation draws on the host's generator; the step
 reads nothing back from the device.  It returns the
@@ -77,6 +99,7 @@ from byol_tpu_torch.ops import fused_augment as fused_aug_lib
 from byol_tpu_torch.ops import fused_update as fused_lib
 from byol_tpu_torch.optim.factory import MOMENTUM_DECAY, LarsMomentum
 from byol_tpu_torch.optim.schedules import cosine_ema_decay
+from byol_tpu_torch.parallel import collectives, mesh
 from byol_tpu_torch.training.linear_eval import normalize_images
 from byol_tpu_torch.training.state import TrainState
 
@@ -178,6 +201,9 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
                                              microbatch)
     ema_pre = scfg.ema_update_mode == "reference_pre"
     layout = None                   # the kernels' device-side segment map
+    rank, world = mesh.process_info()
+    grouped = mesh.is_initialized()
+    synced = world > 1              # global statistics change the arithmetic
 
     def two_views(state: TrainState, part: Mapping[str, torch.Tensor],
                   microbatch: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -189,8 +215,12 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
         # a strided microbatch is not contiguous; K2 reads a dense batch
         images = part["images"].contiguous()
         b, h, w = images.shape[:3]
-        views = device_augment.to_device(
-            draw_views(state.step, b, h, w, microbatch), images.device)
+        # the global microbatch's draws; this rank's rows are block r
+        drawn = draw_views(state.step, b * world, h, w, microbatch)
+        if world > 1:
+            drawn = tuple(device_augment.ViewParams(
+                *(f[rank * b:(rank + 1) * b] for f in v)) for v in drawn)
+        views = device_augment.to_device(drawn, images.device)
         two_view = (fused_aug_lib.fused_two_view if scfg.fused_augment
                     else device_augment.two_view)
         return two_view(images, scfg.image_size, views,
@@ -215,7 +245,8 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
         net.train()
         on1, on2 = _forward_views(net, aug1, aug2, scfg.fuse_views)
         byol_loss = torch.stack([
-            loss_function(*rows, norm_mode=scfg.norm_mode) for rows in zip(
+            loss_function(*rows, norm_mode=scfg.norm_mode, sync=synced)
+            for rows in zip(
                 *(t.chunk(chunks) for t in (on1["prediction"],
                                             on2["prediction"],
                                             tgt1["projection"],
@@ -237,9 +268,12 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
             # JAX's per-microbatch step computes it; the leading underscore
             # keeps the pair out of the grapher's *_mean filter
             with torch.no_grad():
-                stats = [health_lib.collapse_stats(torch.cat(rows))
-                         for rows in zip(tgt1["projection"].chunk(chunks),
-                                         tgt2["projection"].chunk(chunks))]
+                # the global microbatch's rows (all-gathered at world > 1)
+                gather = collectives.all_gather if synced else (lambda x: x)
+                stats = [health_lib.collapse_stats(torch.cat(
+                    [gather(r.contiguous()) for r in rows]))
+                    for rows in zip(tgt1["projection"].chunk(chunks),
+                                    tgt2["projection"].chunk(chunks))]
             metrics["_collapse_feature_std"] = torch.stack(
                 [f for f, _ in stats]).mean()
             metrics["_collapse_cosine_mean"] = torch.stack(
@@ -286,6 +320,14 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
 
     def update(state: TrainState, lr: float, tau: float) -> torch.Tensor:
         nonlocal layout
+        if state.zero1 is not None:
+            return state.zero1.update(
+                state.params, state.grads, state.momentum, state.target,
+                lr=lr, tau=tau, momentum_decay=MOMENTUM_DECAY,
+                trust_coefficient=tx.trust_coefficient, eps=tx.eps,
+                ema_pre=ema_pre)
+        if grouped:
+            collectives.grad_allreduce_mean(state.grads)
         if scfg.fused_update:
             if layout is None or layout.seg is not state.seg:
                 layout = fused_lib.FusedLayout.build(
@@ -309,6 +351,10 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
         if scfg.polyak_ema > 0.0 and state.polyak is None:
             raise ValueError("polyak_ema > 0 needs a train state made with "
                              "polyak_ema > 0 (it has no Polyak buffer)")
+        if state.zero1 is not None and not scfg.fused_update:
+            raise ValueError("a ZeRO-1 train state needs fused_update=True: "
+                             "the sharded update is K1a split + K1b on the "
+                             "rank's range")
         state.grads.zero_()
         if scfg.accum_steps == 1:
             metrics = forward_backward(state, batch, 0)
@@ -317,6 +363,13 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
                                        chunks=scfg.accum_steps)
         else:
             metrics = accumulate(state, batch)
+        if grouped:
+            # global means: the ranks hold equal row counts
+            with torch.no_grad():
+                names = sorted(metrics)
+                vec = collectives.psum_(torch.stack(
+                    [metrics[n].float().reshape(()) for n in names]))
+                metrics = dict(zip(names, (vec / world).unbind()))
         with torch.no_grad():
             lr = lr_schedule(state.count)
             tau = cosine_ema_decay(state.ema_step, scfg.total_train_steps,
@@ -330,12 +383,19 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
                 collapse = (metrics.pop("_collapse_feature_std"),
                             metrics.pop("_collapse_cosine_mean"))
                 # the update both paths apply is -lr * m'
+                grad_stats, m_norm = None, health_lib.global_norm(
+                    state.momentum)
+                if state.zero1 is not None:
+                    # the mean gradient and the momentum live on the
+                    # ranks' ranges
+                    grad_stats = state.zero1.grad_stats()
+                    m_norm = state.zero1.global_sq_norm(
+                        state.momentum).sqrt()
                 metrics["health"] = health_lib.health_stats(
                     grads=state.grads, params=state.params,
                     target_params=state.target, loss=metrics["loss_mean"],
                     collapse=collapse, trust_ratios=trust,
-                    update_norm=abs(lr) * health_lib.global_norm(
-                        state.momentum))
+                    update_norm=abs(lr) * m_norm, grad_stats=grad_stats)
         state.count += 1
         state.step += 1
         state.ema_step += 1

@@ -1,5 +1,6 @@
-"""The training loop (counterpart of byol_tpu/training/trainer.py), cut
-to what one device needs:
+"""The training loop (counterpart of byol_tpu/training/trainer.py), on
+one card or data-parallel over a process group (parallel/mesh.py: one
+process per card, each with its rows of every global batch):
 
 - the epoch loop runs exactly ``steps_per_train_epoch`` optimizer steps
   (wrapping the loader if it runs short), or one under ``debug_step``;
@@ -32,6 +33,16 @@ The metrics stay on the device during an epoch and are read back once at
 its end, after a synchronise, so the step time is the device's as well as
 the host's.
 
+Data parallel, as the JAX trainer runs a multi-host mesh: the data axis is
+the world size (``num_replicas``); the compile plan
+(parallel/compile_plan.py) lays out the state (ZeRO-1) and names itself in
+the run header; rank 0 alone prints, logs, graphs and writes checkpoints,
+every rank restores, and the ranks meet at a barrier around each write;
+eval batches run through ``lockstep_iter`` (the test split, unsharded
+unless ``--shard-eval``, dealt round-robin over the ranks) and the
+metrics are summed over the ranks; a SIGTERM on any rank saves once and
+every rank exits 143.
+
 Observability, as the JAX trainer wires it (observability/):
 
 - a span flight recorder (``--spans on``): ``startup/build``, the fit's
@@ -60,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import os
 import signal
 import sys
@@ -85,9 +97,14 @@ from byol_tpu_torch.observability.meters import (InputPipelineMeter,
 from byol_tpu_torch.observability.telemetry import (NanHaltError,
                                                     TelemetrySink)
 from byol_tpu_torch.observability.watchdog import Watchdog
+from byol_tpu_torch.parallel import mesh
+from byol_tpu_torch.parallel.compile_plan import CompilePlan, plan_from_cfg
+from byol_tpu_torch.parallel.lockstep import any_rank, lockstep_iter
 from byol_tpu_torch.training.build import setup_training
-from byol_tpu_torch.training.state import (TrainState, canonical_state,
-                                           load_canonical)
+from byol_tpu_torch.training.state import TrainState
+
+EVAL_METRICS = ("loss_mean", "byol_loss_mean", "linear_loss_mean",
+                "top1_mean", "top5_mean")
 
 
 @dataclasses.dataclass
@@ -174,11 +191,12 @@ class _Observers:
     grapher: Grapher
     timer: StepTimer
     log_dir: str                    # log_dir/<run name>
+    plan: CompilePlan
 
     def export_trace(self) -> None:
         """The ring as a Chrome trace next to run.jsonl (spans on).  The
         trace is evidence, never a reason to kill the run."""
-        if not self.recorder.enabled:
+        if not self.recorder.enabled or not mesh.is_primary():
             return
         try:
             spans_lib.export_chrome_trace(
@@ -196,10 +214,15 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
     checkpoint if it has one; returns the final state and the last epoch's
     metrics.  ``step_losses`` and ``test_losses`` hold what this call
     ran.  ``grapher`` defaults to ``cfg.task.grapher`` under
-    ``log_dir/<run name>``."""
-    # one device: the data axis is 1 (the JAX trainer sizes it to the
-    # devices it finds)
-    cfg = cfg.replace(device=dataclasses.replace(cfg.device, num_replicas=1))
+    ``log_dir/<run name>``.  Inside a process group every rank calls it
+    (parallel/mesh.py::initialize_distributed first)."""
+    # the data axis is the world (the JAX trainer sizes it to the devices
+    # it finds)
+    world = mesh.world_size()
+    primary = mesh.is_primary()
+    verbose = verbose and primary
+    cfg = cfg.replace(device=dataclasses.replace(cfg.device,
+                                                 num_replicas=world))
     if loader is None:
         loader = get_loader(cfg, device=device)
     rcfg = resolve(cfg, num_train_samples=loader.num_train_samples,
@@ -215,8 +238,8 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
     name = run_name(cfg)
     log_dir = os.path.join(cfg.task.log_dir, name)
     if grapher is None:
-        grapher = Grapher(cfg.task.grapher, logdir=cfg.task.log_dir,
-                          run_name=name)
+        grapher = Grapher(cfg.task.grapher if primary else "null",
+                          logdir=cfg.task.log_dir, run_name=name)
     saver = ModelSaver(
         os.path.join(cfg.model.model_dir, name),
         early_stop=cfg.optim.early_stop,
@@ -225,11 +248,15 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
         max_early_stop_steps=10)
     # best effort: an unopenable log directory or a full disk disables the
     # log with a warning, never the run
-    events = RunLog(os.path.join(log_dir, "run.jsonl"), best_effort=True)
+    plan = plan_from_cfg(cfg, world)
+    events = RunLog(os.path.join(log_dir, "run.jsonl") if primary else None,
+                    best_effort=True)
     events.emit("run_header", config=cfg.to_dict(), **run_header_env(device),
-                run_name=name, n_devices=1,
+                run_name=name, n_devices=world,
+                mesh_shape=plan.describe()["mesh_shape"],
                 steps_per_train_epoch=rcfg.steps_per_train_epoch,
-                global_batch_size=rcfg.global_batch_size)
+                global_batch_size=rcfg.global_batch_size,
+                sharding_plan=plan.describe())
     sink = None
     if cfg.device.telemetry != "off":
         sink = TelemetrySink(cfg.device.telemetry_interval,
@@ -238,8 +265,8 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
     obs = _Observers(recorder=recorder, goodput=meter, events=events,
                      sink=sink, watchdog=Watchdog(cfg.device.watchdog_timeout),
                      grapher=grapher,
-                     timer=StepTimer(rcfg.global_batch_size, 1, device),
-                     log_dir=log_dir)
+                     timer=StepTimer(rcfg.global_batch_size, world, device),
+                     log_dir=log_dir, plan=plan)
     try:
         return _fit(cfg, rcfg, saver, device, loader, verbose, obs)
     finally:
@@ -253,9 +280,13 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
          loader: LoaderBundle, verbose: bool, obs: _Observers) -> FitResult:
     recorder, events, sink = obs.recorder, obs.events, obs.sink
     watchdog, grapher, timer = obs.watchdog, obs.grapher, obs.timer
+    plan = obs.plan
+    rank, world = mesh.process_info()
+    grouped = mesh.is_initialized()
+    primary = rank == 0
     with recorder.span("startup/build"):
-        _, state, train_step, eval_step, schedule = setup_training(rcfg,
-                                                                   device)
+        _, state, train_step, eval_step, schedule = setup_training(
+            rcfg, device, plan=plan)
     if verbose:
         print(f"model: {cfg.model.arch}, {state.seg.num_segments} parameter "
               f"leaves, {sum(state.seg.sizes) / 1e6:.2f}M params, "
@@ -268,31 +299,59 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
                   f"{rcfg.microbatch_size} (global) per optimizer step, "
                   f"bn_mode={cfg.optim.accum_bn_mode}, effective batch "
                   f"{rcfg.global_batch_size}", flush=True)
+        if grouped:
+            print(f"data parallel: {world} ranks of "
+                  f"{rcfg.batch_size_per_replica} rows, zero1="
+                  f"{cfg.device.zero1}, flat_resident="
+                  f"{cfg.device.flat_resident}", flush=True)
     batch_size = rcfg.global_batch_size
     # eval runs a microbatch at a time, each padded to one shape: the same
     # row-weighted means as one padded batch, with the train step's memory
     eval_rows = rcfg.microbatch_size
 
-    def run_eval(batches=None) -> Dict[str, float]:
+    def run_eval(batches=None, sharded=False) -> Dict[str, float]:
+        """The eval metrics over a split.  Inside a process group the
+        ranks hold their shards (``sharded``: the valid split, the test
+        split under --shard-eval) or the whole split, whose batches are
+        then dealt round-robin; they iterate in lockstep and their sums
+        are added up."""
         # the eval loop and its readback are a blocking window
         watchdog.pet()
         acc = MetricAccumulator()
-        for batch in batches if batches is not None else loader.test_loader:
-            for start in range(0, len(batch["label"]), eval_rows):
+        src = batches if batches is not None else loader.test_loader
+        if grouped:
+            if not sharded:
+                src = itertools.islice(src, rank, None, world)
+            src = lockstep_iter(src, lambda: None)
+        for batch in src:
+            n = 0 if batch is None else len(batch["label"])  # None: a pad
+            for start in range(0, n, eval_rows):
                 rows = {k: v[start:start + eval_rows]
                         for k, v in batch.items()}
                 acc.update(eval_step(state, _to_device(
                     pad_batch(rows, eval_rows), device)))
             if cfg.device.debug_step:
                 break
+        if grouped:
+            acc.all_reduce(EVAL_METRICS, device)
         return acc.result()
+
+    def checkpoint_tree():
+        """The layout-free tree of the state (a collective under ZeRO-1,
+        so every rank builds it)."""
+        return plan.to_canonical(state)
+
+    def restore(best: bool):
+        """Every rank reads the checkpoint rank 0 wrote."""
+        tree, epoch_ = saver.restore(best=best)
+        plan.from_canonical(state, tree)
+        return epoch_
 
     if saver.stopped_early:
         # the run already stopped early (the durable marker): evaluate the
         # best state and train nothing
-        tree, init_epoch = saver.restore(best=True)
-        load_canonical(state, tree)
-        test_metrics = run_eval()
+        init_epoch = restore(best=True)
+        test_metrics = run_eval(sharded=loader.eval_sharded)
         if verbose:
             print(f"run already early-stopped at best epoch "
                   f"{init_epoch - 1}; nothing to train", flush=True)
@@ -305,8 +364,7 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
     if saver.has_checkpoint():
         # plain resume continues from LAST: best would discard the training
         # after it and reset the persisted patience on every relaunch
-        tree, init_epoch = saver.restore(best=False)
-        load_canonical(state, tree)
+        init_epoch = restore(best=False)
         saved_epoch = init_epoch - 1
         if not cfg.device.debug_step:
             # a preemption checkpoint lands mid-epoch: re-enter that epoch
@@ -335,14 +393,19 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
     epoch = init_epoch
 
     def maybe_preempt_save() -> None:
-        if not preempted.is_set():
+        # a notice on any rank stops every rank at the same step boundary
+        if not (any_rank(preempted.is_set()) if grouped
+                else preempted.is_set()):
             return
         # the epoch is partly trained: saved as last, never best; the
         # relaunch finds step % steps_per_epoch != 0 and resumes exactly
-        saver.store.save(epoch, canonical_state(state), is_best=False)
-        saver.store.wait()
-        print(f"SIGTERM: checkpointed epoch {epoch} at step {state.step}; "
-              "exiting 143 for requeue", flush=True)
+        tree = checkpoint_tree()
+        if primary:
+            saver.store.save(epoch, tree, is_best=False)
+            saver.store.wait()
+            print(f"SIGTERM: checkpointed epoch {epoch} at step "
+                  f"{state.step}; exiting 143 for requeue", flush=True)
+        mesh.barrier()
         raise SystemExit(143)
 
     def halt_dump(err: NanHaltError) -> None:
@@ -412,7 +475,8 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
                 flops_lib.counting() as counted:
             metrics = train_step(state, batch)
         if counted.total:
-            timer.set_flops(counted.total / batch_size,
+            # the rank's rows: the count covers this process's work
+            timer.set_flops(counted.total / rcfg.batch_size_per_replica,
                             flops_lib.chip_peak_tflops(
                                 torch.cuda.get_device_name(device)
                                 if torch.device(device).type == "cuda"
@@ -486,7 +550,7 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
                         **(timer.epoch_step_quantiles() or {}))
 
             with recorder.span("eval/run", split="test"):
-                test_metrics = run_eval()
+                test_metrics = run_eval(sharded=loader.eval_sharded)
             watchdog.pet()
             test_losses.append(test_metrics["loss_mean"])
             maybe_preempt_save()
@@ -501,7 +565,8 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
             if loader.make_valid_iter is not None:
                 # early stop keys off the TEST loss, as in the JAX trainer
                 with recorder.span("eval/run", split="valid"):
-                    valid_metrics = run_eval(loader.valid_loader)
+                    valid_metrics = run_eval(loader.valid_loader,
+                                             sharded=True)
                 watchdog.pet()
                 valid_losses.append(valid_metrics["loss_mean"])
                 maybe_preempt_save()
@@ -534,8 +599,15 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
 
             watchdog.pet()
             with recorder.span("checkpoint/save", epoch=epoch):
-                stop_now = saver(test_metrics["loss_mean"], epoch,
-                                 canonical_state(state))
+                tree = checkpoint_tree()
+                stop_now = (saver(test_metrics["loss_mean"], epoch, tree)
+                            if primary else None)
+                if grouped:
+                    # rank 0's decision, after its write is complete
+                    if primary:
+                        saver.store.wait()
+                    stop_now = mesh.broadcast_object(stop_now)
+                    mesh.barrier()
             watchdog.pet()
             events.emit("checkpoint", epoch=epoch, step=state.step,
                         metric=test_metrics["loss_mean"],
@@ -548,10 +620,9 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
                                  events=events, images_per_sec_per_chip=(
                                      timer.images_per_sec_per_chip()))
             if stop_now:
-                tree, _ = saver.restore(best=True)
-                load_canonical(state, tree)
+                restore(best=True)
                 with recorder.span("eval/run", split="test_best"):
-                    test_metrics = run_eval()
+                    test_metrics = run_eval(sharded=loader.eval_sharded)
                 stopped = True
                 if verbose:
                     print(f"early stop at epoch {epoch}; restored best "

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive byol_tpu_torch's serving (in process and over the wire),
-training, input, accumulation, observability and linear-eval paths once
-on one CUDA card, and check them.
+training, input, accumulation, observability, linear-eval and
+data-parallel paths once on one CUDA card, and check them.
 
     python3 chip_smoke.py            # from the repository root; one card
 
@@ -107,7 +107,7 @@ Phases (any failure raises, and the script exits nonzero):
    fall), counters set to 0 before and read after each run: every loss
    finite, K1a = K1b = one launch per step, K2 none, every train batch
    with view1 != view2 in every row and both in [0, 1], the valid loss
-   once an epoch.  Then 5 timed steps of each backend (tf and native at
+   once an epoch.  Then 4 timed steps of each backend (tf and native at
    2 and 6 workers) beside the step placement's K2 path, fed by
    ``prefetch_to_device`` as the trainer is, in turns, and a
    torch.profiler breakdown of 3 steps of each (images/s, device-busy
@@ -163,11 +163,36 @@ Phases (any failure raises, and the script exits nonzero):
    accuracy, extraction images/s and the probe's seconds printed; one
    batch through the extractor bitwise equal to the trained state's
    ``frozen_representation_fn``;
-11. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
+11. ddp — data parallel on this one card.  (1) The split K1a (its two
+   entries, ``segment_sums`` and ``segment_epilogue``) and K1b on each
+   rank's range of the ResNet-50 BYOL layout for worlds 2 and 4, against
+   their plain versions (fp32 rtol 1e-5, atol 1e-6; the float64 sums rtol
+   1e-5); the ranks' sums added by hand give the whole buffer's trust
+   vector within 1e-6 relative; world 1's split path equals the fused K1a
+   bit for bit; each timed (graph ms of 20 calls) beside its plain version
+   and its bound.  (2) ``--task fake --arch resnet50 --image-size-override
+   224 --batch-size 64 --augment-placement step --fused-augment on
+   --fused-update on``, 3 steps on the same batches under deterministic
+   cuDNN, without a process group and then over NCCL (a FileStore
+   rendezvous, rank 0 of 1), each with ``--zero1 off`` and with ``--zero1
+   on --flat-resident on``, counters set to 0 before and read after each
+   run: the states bitwise equal with and without the group, and with and
+   without ZeRO-1; K2 = K1b = 3 launches a run, K1a 3 without ZeRO-1, its
+   split entries 3 each with it.  The synced BatchNorm forced on against
+   the one-device class (forward, backward, running statistics, fp32
+   1e-5 of each tensor's largest magnitude); the NCCL all-reduce and reduce-scatter of the flat gradient and
+   the bucketed gather; a profile of each run's step.  (3) ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1 -m
+   byol_tpu_torch ... --zero1 on --flat-resident on`` exits 0, its run
+   header's ``sharding_plan`` reads world 1 and ZeRO-1 on, and its
+   checkpoint restores bitwise into a one-card ``--zero1 off`` state,
+   which then takes a step;
+12. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
    ``{"observe": ...}``, ``{"serving_graph_vs_eager": ..., "wire": ...,
-   "linear_eval": ...}`` and ``{"kernels": [...]}`` lines (launches on
-   this slice's main paths — K3 over the wire, from graph replays; K1a,
-   K1b and K2 in the linear-eval run — and per path), then, last, the
+   "linear_eval": ...}``, ``{"ddp": ...}`` and ``{"kernels": [...]}``
+   lines (launches on this slice's main path — K1a, K1b, K2 and the split
+   K1a's entries in the ddp phase's runs over NCCL; K3's over the wire,
+   from graph replays, where it last ran — and per path), then, last, the
    ``{"ok": true, "device": ...}`` line.
 """
 import json
@@ -495,6 +520,10 @@ def _kind(kernel_name):
         return "K2_two_view"
     if "row_norms_kernel" in name or "segment_reduce_kernel" in name:
         return "K1a_segment_norms"
+    if "segment_sums_kernel" in name or "segment_epilogue_kernel" in name:
+        return "K1a_split"
+    if "nccl" in name:
+        return "nccl"
     if "fused_apply_kernel" in name:
         return "K1b_fused_apply"
     if "memcpy" in name or "memset" in name:
@@ -1204,7 +1233,7 @@ INPUT_SAMPLES = 256
 INPUT_VALID_SAMPLES = 344          # 86 held out by --valid-fraction 0.25
 INPUT_STEPS = 8
 INPUT_SHORT_SAMPLES = 128          # the paper spec's run: 1 epoch, 2 steps
-INPUT_TIMED = 5                    # timed steps per arm and turn
+INPUT_TIMED = 4                    # timed steps per arm and turn
 IMAGE_TREE = (2, 64, 256)          # classes, train images each, pixels
 
 
@@ -2666,6 +2695,428 @@ def run_linear_eval(card):
     return counts, row
 
 
+# ---- ddp: data parallel at world 1 over NCCL, and the range kernels -------
+
+DDP_ARGV = ["--task", "fake", "--arch", "resnet50",
+            "--image-size-override", "224", "--batch-size", "64",
+            "--epochs", "1", "--augment-placement", "step",
+            "--fused-augment", "on", "--fused-update", "on"]
+ZERO1_FLAGS = ["--zero1", "on", "--flat-resident", "on"]
+DDP_STEPS = 3
+
+
+def _ddp_counters():
+    """(segment_norms, fused_apply, two_view, segment_sums,
+    segment_epilogue) launches."""
+    from byol_tpu_torch.ops import fused_augment as fg
+    from byol_tpu_torch.ops import fused_update as fu
+    return (fu.SEGMENT_NORMS_LAUNCHES, fu.FUSED_APPLY_LAUNCHES, fg.LAUNCHES,
+            fu.SEGMENT_SUMS_LAUNCHES, fu.SEGMENT_EPILOGUE_LAUNCHES)
+
+
+def _zero_ddp_counters():
+    from byol_tpu_torch.ops import fused_update as fu
+    _zero_counters()
+    fu.SEGMENT_SUMS_LAUNCHES = fu.SEGMENT_EPILOGUE_LAUNCHES = 0
+
+
+def check_range_kernels(card):
+    """The split K1a and K1b on each rank's range of the ResNet-50 BYOL
+    layout for worlds 2 and 4, on this one card, against their plain
+    versions; the ranks' sums added by hand against the whole buffer's
+    trust vector; world 1's split path against the fused K1a, bit for
+    bit.  -> kernel-line entries for the split entries."""
+    import torch
+    from byol_tpu_torch.ops import fused_update as fu
+    from byol_tpu_torch.parallel import zero1 as z
+    seg, _ = _rn50_segment_map()
+    full = fu.FusedLayout.build(seg, 1e-6, "cuda")
+    real = torch.zeros(seg.total, dtype=torch.bool, device="cuda")
+    for start, size in zip(seg.starts, seg.sizes):
+        real[start:start + size] = True
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p, g, m, t = (torch.randn(seg.total, device="cuda", generator=gen)
+                  * k * real for k in (0.05, 1e-3, 1e-3, 0.05))
+    want_scale, want_norms = fu.segment_norms(p, g, full)
+    sums1 = fu.segment_sums(p, g, full)
+    scale1, norms1 = fu.segment_epilogue(sums1, full)
+    bitwise1 = (torch.equal(scale1, want_scale)
+                and torch.equal(norms1, want_norms))
+    want_trust = full.trust_vector(want_scale)
+    kw = dict(lr=0.3, tau=0.99, momentum_decay=0.9, ema_pre=False)
+    err = {"sums": 0.0, "sums_rel": 0.0, "epilogue": 0.0, "apply": 0.0,
+           "trust_rel": 0.0}
+    ok = bitwise1
+    timed = {}
+    for world in (2, 4):
+        parts = []
+        for r in range(world):
+            lo, hi = z.rank_rows(seg.num_rows, world, r)
+            lay = fu.FusedLayout.build(seg, 1e-6, "cuda", lo, hi)
+            sl = slice(lo * fu.LANES, hi * fu.LANES)
+            sums = fu.segment_sums(p[sl], g[sl], lay)
+            ref = fu.segment_sums_reference(p[sl], g[sl], lay)
+            rel = ((sums - ref).abs() / ref.abs().clamp_min(1e-300)).max()
+            err["sums_rel"] = max(err["sums_rel"], rel.item())
+            err["sums"] = max(err["sums"], (sums - ref).abs().max().item())
+            ok = ok and torch.allclose(sums, ref, rtol=1e-5, atol=0.0)
+            parts.append((lay, sl, sums))
+        total = torch.stack([s for _, _, s in parts]).sum(0)
+        scale, norms = fu.segment_epilogue(total, full)
+        ref_scale, ref_norms = fu.segment_epilogue_reference(total, full)
+        err["epilogue"] = max(err["epilogue"],
+                              (scale - ref_scale).abs().max().item(),
+                              (norms - ref_norms).abs().max().item())
+        ok = ok and torch.allclose(scale, ref_scale, **K1_TOL) \
+            and torch.allclose(norms, ref_norms, **K1_TOL)
+        trust = full.trust_vector(scale)
+        rel = ((trust - want_trust).abs() / want_trust.abs()).max().item()
+        err["trust_rel"] = max(err["trust_rel"], rel)
+        ok = ok and rel <= 1e-6
+        for lay, sl, _ in parts:
+            got = [x[sl].clone() for x in (p, m, t)]
+            want = [x[sl].clone() for x in (p, m, t)]
+            fu.fused_apply(got[0], g[sl], got[1], got[2], scale, lay, **kw)
+            fu.fused_apply_reference(want[0], g[sl], want[1], want[2],
+                                     scale, lay, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                err["apply"] = max(err["apply"], (a - b).abs().max().item())
+                ok = ok and torch.allclose(a, b, **K1_TOL)
+        lay, sl, _ = parts[0]
+        pr, gr = p[sl], g[sl]
+        bufs = [x[sl].clone() for x in (p, m, t)]
+        timed[world] = {
+            "segment_sums": (
+                _device_ms(lambda: fu.segment_sums(pr, gr, lay)),
+                _device_ms(lambda: fu.segment_sums_reference(pr, gr, lay)),
+                (2 * 4 * lay.total + 16 * seg.num_segments)),
+            "fused_apply": (
+                _device_ms(lambda: fu.fused_apply(
+                    bufs[0], gr, bufs[1], bufs[2], scale, lay, **kw)),
+                _device_ms(lambda: fu.fused_apply_reference(
+                    bufs[0], gr, bufs[1], bufs[2], scale, lay, **kw)),
+                7 * 4 * lay.total),
+            "rows": lay.rows}
+    epi = (_device_ms(lambda: fu.segment_epilogue(total, full)),
+           _device_ms(lambda: fu.segment_epilogue_reference(total, full)),
+           seg.num_segments * (16 + 4 + 8 + 4))
+    print(f"ddp: range kernels at the ResNet-50 layout, worlds 2 and 4: "
+          f"ok={ok}, world 1 split == fused K1a bitwise {bitwise1}, errors "
+          f"{err} [{card}]", flush=True)
+    for world, rows in timed.items():
+        for name in ("segment_sums", "fused_apply"):
+            ms, plain, nbytes = rows[name]
+            print(f"ddp: {name} on rank 0's range of world {world} "
+                  f"({rows['rows']} rows): {ms:.4f} ms graph, plain "
+                  f"{plain:.4f}, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
+                  f" (bytes) [{card}]", flush=True)
+    print(f"ddp: segment_epilogue ({seg.num_segments} segments): "
+          f"{epi[0]:.4f} ms graph, plain {epi[1]:.4f}, bound "
+          f"{epi[2] / HBM_BYTES_PER_S * 1e3:.6f} (bytes) [{card}]",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"ddp: the range kernels disagree with their "
+                             f"plain versions or the whole buffer: {err}, "
+                             f"world 1 bitwise {bitwise1}")
+
+    def entry(ms, plain, nbytes, max_err, **more):
+        return dict(ms=ms, plain_ms=plain,
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    bound_by="bytes", library_ms=None, max_abs_err=max_err,
+                    ok=ok, **more)
+    ms, plain, nbytes = timed[2]["segment_sums"]
+    return {
+        "segment_sums": entry(
+            ms, plain, nbytes, err["sums"],
+            max_rel_err=err["sums_rel"], shape=f"rank 0 of 2, "
+            f"{timed[2]['rows']} rows",
+            world4_ms=timed[4]["segment_sums"][0],
+            world4_bound_ms=timed[4]["segment_sums"][2]
+            / HBM_BYTES_PER_S * 1e3),
+        "segment_epilogue": entry(*epi, err["epilogue"],
+                                  shape=f"{seg.num_segments} segments"),
+        "fused_apply_range": {
+            "ms": timed[2]["fused_apply"][0],
+            "plain_ms": timed[2]["fused_apply"][1],
+            "bound_ms": timed[2]["fused_apply"][2] / HBM_BYTES_PER_S * 1e3,
+            "world4_ms": timed[4]["fused_apply"][0],
+            "max_abs_err": err["apply"]},
+        "trust_rel_err": err["trust_rel"], "world1_bitwise": bitwise1}
+
+
+def _ddp_batches(n):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    return [{"images": torch.randint(0, 256, (64, 224, 224, 3),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.uint8),
+             "label": torch.randint(0, 10, (64,), generator=gen,
+                                    device="cuda", dtype=torch.int32)}
+            for _ in range(n)]
+
+
+def _ddp_run(zero1, batches):
+    """``DDP_STEPS`` steps of the slice's config (``--zero1 on
+    --flat-resident on`` with ``zero1``) in this process at the current
+    world, counters set to 0 before and read after.  -> (state, step,
+    counts, losses)."""
+    import dataclasses
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.core.config import resolve
+    from byol_tpu_torch.parallel import mesh
+    from byol_tpu_torch.parallel.compile_plan import plan_from_cfg
+    from byol_tpu_torch.training.build import setup_training
+    cfg = config_from_args(build_parser().parse_args(
+        DDP_ARGV + (ZERO1_FLAGS if zero1 else [])))
+    world = mesh.world_size()
+    cfg = cfg.replace(device=dataclasses.replace(cfg.device,
+                                                 num_replicas=world))
+    rcfg = resolve(cfg, num_train_samples=512, num_test_samples=128,
+                   output_size=10, input_shape=(224, 224, 3))
+    _, state, step, _, _ = setup_training(rcfg, "cuda",
+                                          plan=plan_from_cfg(cfg, world))
+    _zero_ddp_counters()
+    losses = [float(step(state, b)["loss_mean"]) for b in batches]
+    return state, step, _ddp_counters(), losses
+
+
+def _differing(a, b, prefix=""):
+    """The leaves where two canonical trees differ."""
+    import torch
+    if isinstance(a, dict):
+        return [n for k in a for n in _differing(a[k], b[k],
+                                                 f"{prefix}{k}.")]
+    if isinstance(a, torch.Tensor):
+        return [] if torch.equal(a, b) else [prefix[:-1]]
+    return [] if a == b else [prefix[:-1]]
+
+
+def _synced_bn_check(card):
+    """The synced BatchNorm forced on against the one-device class on
+    ResNet-50's stem shape, forward and backward, fp32."""
+    import copy
+
+    import torch
+    from byol_tpu_torch.models.layers import BatchNorm
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    one = BatchNorm(64).to("cuda")
+    with torch.no_grad():
+        one.weight.copy_(torch.rand(64, generator=gen, device="cuda") + 0.5)
+        one.bias.copy_(torch.randn(64, generator=gen, device="cuda"))
+    synced = copy.deepcopy(one)
+    synced.sync = True
+    x = torch.randn(64, 64, 112, 112, generator=gen, device="cuda") * 2 + 1
+    dy = torch.randn(x.shape, generator=gen, device="cuda")
+    errs = {}
+    outs = []
+    for bn in (one, synced):
+        xi = x.clone().requires_grad_(True)
+        y = bn.train()(xi)
+        y.backward(dy)
+        outs.append((y.detach(), xi.grad, bn.weight.grad, bn.bias.grad,
+                     bn.running_mean.clone(), bn.running_var.clone()))
+    # each error relative to its tensor's largest magnitude: the
+    # parameter gradients are sums over 802,816 positions each, ~1e3, so
+    # another summation order moves them by ~1e-3
+    ok = True
+    for name, a, b in zip(("y", "dx", "dweight", "dbias", "running_mean",
+                           "running_var"), *outs):
+        errs[name] = ((a - b).abs().max() / b.abs().max()).item()
+        ok = ok and errs[name] <= 1e-5
+    print(f"ddp: synced BatchNorm forced on at world 1 vs the one-device "
+          f"class, {tuple(x.shape)} fp32: max abs err over max abs value "
+          f"{errs} ok={ok} [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"ddp: synced BatchNorm disagrees: {errs}")
+    return errs
+
+
+def _torchrun(card, root, state_like):
+    """The launcher: ``torch.distributed.run --standalone --nproc_per_node
+    1 -m byol_tpu_torch ... --zero1 on --flat-resident on``; its run
+    header's plan; its checkpoint restored into a one-card ``--zero1 off``
+    state, which then takes a step.  -> row."""
+    import glob
+
+    import torch
+    from byol_tpu_torch.checkpoint.checkpointer import CheckpointStore
+    from byol_tpu_torch.observability.events import read_events
+    from byol_tpu_torch.training.state import (canonical_state,
+                                               load_canonical)
+    model_dir = os.path.join(root, "models")
+    log_dir = os.path.join(root, "logs")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "byol_tpu_torch", *DDP_ARGV,
+           *ZERO1_FLAGS, "--model-dir", model_dir, "--log-dir", log_dir,
+           "--grapher", "jsonl", "--workers-per-replica", "0"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    # its own process group: on a timeout the launcher's workers are killed
+    # with it
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    tail = out.strip().splitlines()[-12:]
+    for line in tail:
+        print(f"ddp: torchrun | {line[:200]}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"ddp: torchrun exited {proc.returncode}")
+    (log,) = glob.glob(os.path.join(log_dir, "*", "run.jsonl"))
+    header = next(read_events(log))
+    plan = header["sharding_plan"]
+    (run_dir,) = glob.glob(os.path.join(model_dir, "*"))
+    store = CheckpointStore(run_dir)
+    tree, epoch = store.restore(best=False)
+    store.close()
+    state, step = state_like
+    load_canonical(state, tree)
+    restored = _trees_bitwise(canonical_state(state), tree)
+    loss = float(step(state, _ddp_batches(1)[0])["loss_mean"])
+    print(f"ddp: torchrun --nproc_per_node 1 rc 0 in {wall:.1f} s; run "
+          f"header sharding_plan {plan}; its checkpoint (epoch {epoch}, "
+          f"step {tree['step']}) restored into a one-card --zero1 off state "
+          f"bitwise {restored}, which then took step {state.step} with loss "
+          f"{loss:.4f} [{card}]", flush=True)
+    if not (plan["zero1"] == "on" and plan["mesh_shape"]["data"] == 1
+            and plan["flat_resident"] == "on" and restored
+            and math.isfinite(loss) and tree["step"] == 8):
+        raise AssertionError(f"ddp: torchrun run {plan}, restored "
+                             f"{restored}, step {tree['step']}, loss {loss}")
+    return {"wall_s": wall, "sharding_plan": plan, "restored_bitwise":
+            restored, "checkpoint_step": tree["step"]}
+
+
+def run_ddp(card):
+    """The data-parallel path on this one card: the range kernels of
+    worlds 2 and 4; the slice's step at world 1 without a process group
+    and over NCCL (a FileStore rendezvous, rank 0 of 1), with and without
+    ZeRO-1, states bitwise equal; the synced BatchNorm forced on; the
+    collectives on the 140 MB flat gradient; step profiles; then the
+    torchrun launch.  -> (counts by run, kernel rows, row)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from byol_tpu_torch.parallel import collectives, mesh
+    from byol_tpu_torch.training.state import canonical_state
+    rows = check_range_kernels(card)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    root = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    try:
+        batches = _ddp_batches(DDP_STEPS)
+        runs, trees, counts, losses = {}, {}, {}, {}
+        for where in ("solo", "nccl"):
+            if where == "nccl":
+                mesh.initialize_distributed(
+                    "cuda", store=dist.FileStore(os.path.join(root, "store"),
+                                                 1), rank=0, world_size=1)
+                if not (mesh.is_initialized()
+                        and dist.get_backend() == "nccl"):
+                    raise AssertionError("ddp: no NCCL process group")
+            for zero1 in (False, True):
+                key = (where, zero1)
+                state, step, counts[key], losses[key] = _ddp_run(zero1,
+                                                                 batches)
+                trees[key] = canonical_state(state)
+                runs[key] = (state, step)
+        checks = {
+            "nccl == no group, zero1 off": (("solo", False), ("nccl", False)),
+            "nccl == no group, zero1 on": (("solo", True), ("nccl", True)),
+            "zero1 on == off, no group": (("solo", False), ("solo", True)),
+        }
+        bitwise = {}
+        for name, (a, b) in checks.items():
+            diff = _differing(trees[a], trees[b])
+            bitwise[name] = not diff
+            print(f"ddp: {name}: states bitwise {not diff}"
+                  + (f"; differing leaves {diff[:6]}" if diff else "")
+                  + f"; losses {losses[a]} vs {losses[b]} [{card}]",
+                  flush=True)
+        want = {False: (DDP_STEPS, DDP_STEPS, DDP_STEPS, 0, 0),
+                True: (0, DDP_STEPS, DDP_STEPS, DDP_STEPS, DDP_STEPS)}
+        for key, c in counts.items():
+            print(f"ddp: launches {key} (segment_norms, fused_apply, "
+                  f"two_view, segment_sums, segment_epilogue) = {c}",
+                  flush=True)
+            if c != want[key[1]]:
+                raise AssertionError(f"ddp: launches {key} {c}, want "
+                                     f"{want[key[1]]}")
+        if not all(bitwise.values()):
+            raise AssertionError(f"ddp: states differ: {bitwise}")
+        bn_errs = _synced_bn_check(card)
+        state, step = runs[("nccl", True)]
+        grads = runs[("nccl", False)][0].grads
+        shard = torch.empty(state.zero1.shard_elements, device="cuda")
+        coll = {
+            "all_reduce_mean_ms": _time_ms(
+                lambda: collectives.grad_allreduce_mean(grads)),
+            "reduce_scatter_ms": _time_ms(
+                lambda: collectives.reduce_scatter_mean(shard,
+                                                        state.grads)),
+            "bucketed_gather_ms": _time_ms(
+                lambda: state.zero1.gather(state.params)),
+            "bytes": grads.numel() * 4}
+        print(f"ddp: NCCL at world 1 on the {coll['bytes'] / 1e6:.1f} MB "
+              f"flat gradient, eager ms: {coll} [{card}]", flush=True)
+        # the step without collectives (built before the group existed)
+        # against the step over NCCL, with and without ZeRO-1: wall ms of
+        # 5 steps each in turns, then 3 profiled
+        order = [("solo", False), ("nccl", False), ("nccl", True)]
+        walls = {key: [] for key in order}
+        for key in order + order[::-1]:
+            st, fn = runs[key]
+            fn(st, batches[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn(st, batches[0])
+            torch.cuda.synchronize()
+            walls[key].append((time.perf_counter() - t0) * 1e3 / 5)
+        profiles = {}
+        for key in order:
+            st, fn = runs[key]
+            profiles[key] = _device_profile(
+                lambda: fn(st, batches[0]), 3, card,
+                f"ddp world 1, {'NCCL' if key[0] == 'nccl' else 'no group'},"
+                f" zero1 {'on' if key[1] else 'off'}, resnet50 batch 64 "
+                f"step (wall ms of 5 steps, in turns: {walls[key]})",
+                top=6 if key == ("nccl", True) else 0)
+        # the step built without a group, with --zero1 off, takes the
+        # launcher's checkpoint
+        plain = runs[("solo", False)]
+        del runs
+        torch.cuda.empty_cache()
+        mesh.shutdown()
+        launcher = _torchrun(card, root, plain)
+    finally:
+        mesh.shutdown()
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"bitwise": bitwise, "synced_bn_max_rel_err": bn_errs,
+           "collectives": coll,
+           "busy_ms": {f"{w} zero1 {'on' if z else 'off'}": p["busy_ms"]
+                       for (w, z), p in profiles.items()},
+           "wall_ms": {f"{w} zero1 {'on' if z else 'off'}": walls[(w, z)]
+                       for (w, z) in profiles},
+           "torchrun": launcher,
+           "range_kernels": {k: rows[k] for k in ("fused_apply_range",
+                                                  "trust_rel_err",
+                                                  "world1_bitwise")}}
+    return counts, rows, row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2714,6 +3165,7 @@ def main() -> int:
     observe_counts, observe_row = phase(
         "observe", run_observe, card, accum_row["microbatch"], accum_row)
     le_counts, le_row = phase("linear_eval", run_linear_eval, card)
+    ddp_counts, ddp_rows, ddp_row = phase("ddp", run_ddp, card)
     print(f"phases, s: {phases}; total since start "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2744,24 +3196,34 @@ def main() -> int:
         "ok": all(r["ok"] for r in flash_rows),
     }]
 
-    def by_path(i):
+    # this slice's main path: the ddp phase's two runs over NCCL (zero1
+    # off, then on), each with the counters set to 0 before it
+    ddp = [a + b for a, b in zip(ddp_counts[("nccl", False)],
+                                 ddp_counts[("nccl", True)])]
+
+    def ddp_paths(i):
+        return {f"ddp {where}, zero1 {'on' if z else 'off'}": c[i]
+                for (where, z), c in ddp_counts.items()}
+
+    def by_path(i, j):
         """A kernel's launches on each training path (and 0 on the served
-        ones): the linear_eval phase's run is this slice's main path."""
-        paths = {"linear_eval": le_counts[i], "wire": 0, "serving": 0,
+        ones); ``j`` its index among the ddp phase's counters."""
+        paths = ddp_paths(j)
+        paths.update({"linear_eval": le_counts[i], "wire": 0, "serving": 0,
                  "observe": observe_counts[i], "accum": accum_counts[i],
                  "training": train_counts[i],
                  "checkpoint, uninterrupted": ckpt_counts[i],
-                 "checkpoint, relaunch after SIGTERM": resumed_counts[i]}
+                 "checkpoint, relaunch after SIGTERM": resumed_counts[i]})
         paths.update({name: c[i] for name, c in input_counts.items()})
         return paths
-    for name, line, i in (("segment_norms", 198, 1),
-                          ("fused_apply", 215, 2)):
+    for name, line, i, j in (("segment_norms", 198, 1, 0),
+                             ("fused_apply", 215, 2, 1)):
         row = k1_rows[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "byol_tpu_torch/ops/csrc/fused_update.cu",
             "replaces": f"byol_tpu/ops/fused_update.py:{line}",
-            "launches": le_counts[i], "launches_by_path": by_path(i),
+            "launches": ddp[j], "launches_by_path": by_path(i, j),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2772,18 +3234,28 @@ def main() -> int:
         "name": "two_view", "route": "cuda",
         "source": "byol_tpu_torch/ops/csrc/fused_augment.cu",
         "replaces": "byol_tpu/ops/fused_augment.py:179",
-        "launches": le_counts[3], "launches_by_path": by_path(3),
+        "launches": ddp[2], "launches_by_path": by_path(3, 2),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None, "einsum_crop_ms": k2["einsum_crop_ms"],
         "shape": [64, 224, 224, 3],
         "ok": all(r["ok"] for r in k2_rows)})
+    # K1a split: its own entries, which only the ZeRO-1 update calls
+    for name, j in (("segment_sums", 3), ("segment_epilogue", 4)):
+        row = ddp_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "byol_tpu_torch/ops/csrc/fused_update.cu",
+            "replaces": "byol_tpu/ops/fused_update.py:198 (the ZeRO-1 "
+                        "call at :417)",
+            "launches": ddp[j], "launches_by_path": ddp_paths(j), **row})
     print(json.dumps({"input_arms": input_rows}), flush=True)
     print(json.dumps({"accum": accum_row}), flush=True)
     print(json.dumps({"observe": observe_row}), flush=True)
     print(json.dumps({"serving_graph_vs_eager": versus, "wire": wire_row,
                       "linear_eval": le_row}), flush=True)
+    print(json.dumps({"ddp": ddp_row}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

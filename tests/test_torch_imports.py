@@ -31,6 +31,13 @@ def test_the_scan_sees_the_package():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
 
 
+def test_the_scan_sees_the_parallel_modules():
+    parallel = ROOT / "byol_tpu_torch" / "parallel"
+    for name in ("mesh", "collectives", "lockstep", "zero1", "flat_state",
+                 "compile_plan"):
+        assert parallel / f"{name}.py" in FILES, name
+
+
 @pytest.mark.parametrize("path", FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_imports_nothing_of_jax(path):

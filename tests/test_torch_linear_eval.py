@@ -156,9 +156,34 @@ def test_extract_features_pads_the_remainder_as_jax():
     np.testing.assert_array_equal(labels, want_l)
 
 
-def test_mesh_is_refused_until_multi_gpu():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        torch_le.run_linear_eval_from_cfg(None, None, mesh=object())
+def test_mesh_is_refused_until_multi_gpu(one_thread):  # noqa: F811
+    """Multi-GPU extraction is ported: a mesh of the world's data axis is
+    accepted (the lockstep extraction of extract_features_spmd, here one
+    rank) and scores as mesh=None does; a mesh the world cannot hold is
+    refused."""
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.core.config import resolve
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.parallel.mesh import MeshSpec
+    from byol_tpu_torch.training.build import setup_training
+    cfg = config_from_args(build_parser().parse_args([
+        "--no-cuda", "--task", "fake", "--arch", "resnet18",
+        "--image-size-override", "16", "--batch-size", "64", "--no-half",
+        "--head-latent-size", "32", "--projection-size", "16",
+        "--workers-per-replica", "0"]))
+    loader = get_loader(cfg)
+    rcfg = resolve(cfg, num_train_samples=loader.num_train_samples,
+                   num_test_samples=loader.num_test_samples,
+                   output_size=loader.output_size,
+                   input_shape=loader.input_shape)
+    _, state, _, _, _ = setup_training(rcfg, "cpu")
+    results = [torch_le.run_linear_eval_from_cfg(cfg, state, loader=loader,
+                                                 mesh=mesh, epochs=2)
+               for mesh in (None, MeshSpec())]
+    assert results[0] == results[1]
+    with pytest.raises(ValueError, match="world size"):
+        torch_le.run_linear_eval_from_cfg(cfg, state, loader=loader,
+                                          mesh=MeshSpec(data=2), epochs=2)
 
 
 # ---------------------------------------------------------------------------

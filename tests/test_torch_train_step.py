@@ -272,16 +272,16 @@ def test_resolve_matches_jax(batch, replicas, samples, epochs):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(device=dict(zero1="on")), dict(device=dict(flat_resident="on")),
+    # --zero1 on and --flat-resident on are ported (parallel/); what stays
+    # refused in their place: ZeRO-1 without the fused update, and a DCN
+    # data axis
+    dict(device=dict(zero1="on")), dict(device=dict(dcn_data_parallel=2)),
     dict(model=dict(remat_policy="dots")), dict(model=dict(remat=True)),
     dict(device=dict(sequence_parallel=2)),
     dict(device=dict(model_parallel=2))])
 def test_resolve_refuses_what_is_not_ported(overrides):
     cfg = torch_config.Config()
     for section, values in overrides.items():
-        if section == "device" and values.get("flat_resident") == "on":
-            cfg = cfg.replace(optim=torch_config.OptimConfig(
-                fused_update="on"))
         cfg = cfg.replace(**{section: dataclasses.replace(
             getattr(cfg, section), **values)})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

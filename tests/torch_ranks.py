@@ -1,0 +1,308 @@
+"""Ranks of a data-parallel world as OS processes, for the port's tests.
+
+:func:`run_ranks` starts ``world`` processes of ``python -m
+tests.torch_ranks``, each of which joins a gloo process group through a
+``FileStore`` under the test's own directory (no port, so parallel test
+workers never collide), runs one torch thread, calls a function of
+:data:`JOBS` on a spec handed over in a file, and writes its result to a
+file.  Every process has a deadline: a hang fails the test, never the
+suite.  This module imports torch and the port only: the JAX oracle runs
+in the test process.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+from typing import Any, Dict, List
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread in the test process too, restored after (imported
+    by the multi-rank test files): under a parallel test run every extra
+    OpenMP team oversubscribes the cores the other tests share."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+# the tiny BYOL net of tests/test_torch_train_step.py
+WIDTH, CLASSES, HEAD, PROJ = 8, 10, 32, 16
+WD, BASE_LR, LR_BATCH, TOTAL = 1e-3, 2.0, 8, 24
+
+
+def run_ranks(job: str, spec: Dict[str, Any], world: int, tmp_path: Path,
+              timeout: float = 180.0, expect_rc: int = 0) -> List[Any]:
+    """``JOBS[job](spec)`` on each of ``world`` ranks; their results in
+    rank order (None for a rank that exited ``expect_rc`` != 0 as
+    expected)."""
+    tmp_path = Path(tmp_path)
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    spec_path = tmp_path / f"{job}_spec.pt"
+    torch.save(spec, spec_path)
+    store = tmp_path / f"{job}_store"
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    procs = []
+    for r in range(world):
+        out = tmp_path / f"{job}_out{r}.pt"
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tests.torch_ranks", job, str(spec_path),
+             str(store), str(r), str(world), str(out)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    try:
+        for r, p in enumerate(procs):
+            log, _ = p.communicate(timeout=timeout)
+            logs.append(log)
+            if p.returncode != expect_rc:
+                failed.append((r, p.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError(f"ranks {failed} failed:\n" + "\n".join(
+            f"--- rank {r} ---\n{log[-3000:]}" for r, log in
+            enumerate(logs)))
+    if expect_rc:
+        return [None] * world
+    return [torch.load(tmp_path / f"{job}_out{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def tiny_net(dtype=torch.float32):
+    from byol_tpu_torch.models import resnet as torch_resnet
+    from byol_tpu_torch.models.byol_net import BYOLNet
+    backbone = torch_resnet.ResNet(stage_sizes=[1, 1],
+                                   block_cls=torch_resnet.Bottleneck,
+                                   width=WIDTH, small_inputs=True,
+                                   zero_init_residual=False, dtype=dtype)
+    return BYOLNet(backbone, num_classes=CLASSES, head_latent_size=HEAD,
+                   projection_size=PROJ, dtype=dtype)
+
+
+def tiny_state(converted, *, polyak_ema=0.0, zero1=False,
+               flat_resident=False, bucket_mb=64):
+    """The tiny net's train state at this rank, laid out by the plan,
+    holding ``converted`` (``convert.train_state_from_flax``)."""
+    from byol_tpu_torch.parallel import mesh
+    from byol_tpu_torch.parallel.compile_plan import build_plan
+    from byol_tpu_torch.training.state import (create_train_state,
+                                               load_converted)
+    plan = build_plan(mesh.world_size(), zero1=zero1,
+                      flat_resident=flat_resident, bucket_mb=bucket_mb)
+    state = create_train_state(tiny_net(), polyak_ema=polyak_ema,
+                               pad_rows_to=plan.pad_rows_to)
+    plan.prepare(state, weight_decay=WD)
+    load_converted(state, converted)
+    return state, plan
+
+
+def train(spec):
+    """Steps of the tiny net on this rank's rows of each global batch;
+    -> per-step metrics (host floats, the health vector as a list) and
+    the canonical state."""
+    from byol_tpu_torch.data import device_augment as aug
+    from byol_tpu_torch.optim.factory import build_optimizer
+    from byol_tpu_torch.parallel import mesh
+    from byol_tpu_torch.training import steps as torch_steps
+    state, plan = tiny_state(spec["converted"],
+                             polyak_ema=spec["scfg"].get("polyak_ema", 0.0),
+                             **spec.get("plan", {}))
+    tx, sched = build_optimizer(
+        "lars_momentum", base_lr=BASE_LR, global_batch_size=LR_BATCH,
+        weight_decay=WD, total_units=TOTAL, warmup_units=0)
+    draw = None
+    if spec.get("draws") is not None:
+        table = spec["draws"]
+
+        def draw(step, b, h, w, microbatch):
+            views = table[(step, microbatch)]
+            assert len(views[0][0]) == b, (len(views[0][0]), b)
+            return tuple(aug.ViewParams(*v) for v in views)
+    step = torch_steps.make_train_step(
+        tx, torch_steps.StepConfig(total_train_steps=TOTAL, **spec["scfg"]),
+        sched, draw_views=draw)
+    metrics = []
+    for batch in spec["batches"]:
+        local = mesh.shard_batch(batch)
+        got = step(state, {k: torch.from_numpy(np.ascontiguousarray(v))
+                           for k, v in local.items()})
+        metrics.append({k: (v.tolist() if v.numel() > 1 else float(v))
+                        for k, v in got.items()})
+    return {"metrics": metrics, "state": plan.to_canonical(state),
+            "momentum_numel": state.momentum.numel()}
+
+
+def fit_cli(spec):
+    """``fit`` of the port's CLI flags at this rank; -> its final metrics
+    and canonical state."""
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.parallel.compile_plan import plan_from_cfg
+    from byol_tpu_torch.training.trainer import fit
+    cfg = config_from_args(build_parser().parse_args(spec["argv"]))
+    result = fit(cfg, device=torch.device("cpu"), verbose=False)
+    tree = plan_from_cfg(cfg, 1).to_canonical(result.state)
+    return {"state": tree, "test": result.test_metrics,
+            "losses": result.step_losses}
+
+
+def fit_sigterm(spec):
+    """``fit`` of the CLI flags, the last rank sending itself SIGTERM as
+    its loader yields batch ``spec['at']``: every rank must checkpoint
+    once and exit 143 (SystemExit out of this job)."""
+    import signal
+
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.parallel import mesh
+    from byol_tpu_torch.training.trainer import fit
+    cfg = config_from_args(build_parser().parse_args(spec["argv"]))
+    loader = get_loader(cfg)
+    make = loader.make_train_iter
+    last = mesh.rank() == mesh.world_size() - 1
+
+    def noticed(epoch):
+        for i, batch in enumerate(make(epoch)):
+            if last and i == spec["at"]:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+    loader.make_train_iter = noticed
+    fit(cfg, device=torch.device("cpu"), loader=loader, verbose=False)
+    return {"finished": True}
+
+
+def linear_eval(spec):
+    """Linear-eval extraction and probe of a state made from the seed, at
+    this rank; -> the features, labels, W and b."""
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.core.config import resolve
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.parallel import mesh
+    from byol_tpu_torch.training import linear_eval as le
+    from byol_tpu_torch.training.build import build_net, setup_training
+    cfg = config_from_args(build_parser().parse_args(spec["argv"]))
+    loader = get_loader(cfg)
+    rcfg = resolve(cfg, num_train_samples=loader.num_train_samples,
+                   num_test_samples=loader.num_test_samples,
+                   output_size=loader.output_size,
+                   input_shape=loader.input_shape)
+    _, state, _, _, _ = setup_training(rcfg, "cpu")
+    apply_fn = le.encoder_extractor_spmd(build_net(rcfg), state)
+    host = mesh.local_rows(rcfg.global_batch_size)
+    out = {}
+    for split, it, dealt in (("train", loader.train_eval_loader, False),
+                             ("test", loader.test_loader, True)):
+        out[split] = le.extract_features_spmd(
+            apply_fn, it, host_batch=host, replicated_data=dealt,
+            sample_shape=loader.input_shape)
+    w, b = le.train_linear_probe(*out["train"], loader.output_size,
+                                 epochs=spec.get("epochs", 5), device="cpu")
+    out["probe"] = (w, b)
+    # the entry point the CLI's --linear-eval calls, on every rank
+    out["result"] = le.run_linear_eval_from_cfg(
+        cfg, state, loader=loader, epochs=spec.get("epochs", 5))
+    return out
+
+
+def lockstep(spec):
+    """``lockstep_iter`` over ``spec['counts'][rank]`` batches, the rank
+    ``spec['raise_on']`` raising at its ``spec['raise_at']``-th."""
+    from byol_tpu_torch.parallel import mesh
+    from byol_tpu_torch.parallel.lockstep import lockstep_iter
+    rank = mesh.rank()
+
+    def batches():
+        for i in range(spec["counts"][rank]):
+            if rank == spec.get("raise_on") and i == spec.get("raise_at"):
+                raise OSError(f"unreadable file at batch {i}")
+            yield i
+    got = []
+    try:
+        for b in lockstep_iter(batches(), lambda: "pad"):
+            got.append(b)
+    except (OSError, RuntimeError) as e:
+        return {"seen": got, "error": f"{type(e).__name__}: {e}"}
+    return {"seen": got, "error": None}
+
+
+def gather(spec):
+    """Each rank writes its range of a buffer of ``spec['sizes']``
+    segments; -> the buffer refilled by the whole-buffer all-gather and by
+    the bucketed one (``spec['bucket_mb']``)."""
+    from byol_tpu_torch.ops.fused_update import build_segment_map
+    from byol_tpu_torch.parallel import mesh
+    from byol_tpu_torch.parallel.zero1 import Zero1Context
+    rank, world = mesh.process_info()
+    seg = build_segment_map(spec["sizes"], [True] * len(spec["sizes"]))
+    out = {}
+    for name, mb in (("whole", None), ("bucketed", spec["bucket_mb"])):
+        ctx = Zero1Context.build(seg, world=world, rank=rank,
+                                 weight_decay=0.0, device="cpu",
+                                 bucket_mb=mb)
+        buf = torch.full((ctx.total_elements,), -1.0)
+        own = ctx.shard_of(buf)
+        own.copy_(torch.arange(own.numel(), dtype=torch.float32)
+                  + 1e6 * (rank + 1))
+        out[name] = ctx.gather(buf).clone()
+    out["buckets"] = len(ctx.buckets)
+    out["real"] = seg.total
+    return out
+
+
+def bn_stats(spec):
+    """A train-mode forward of the CLI config's net on this rank's rows;
+    -> its output rows and the BatchNorm running statistics."""
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.core.config import resolve
+    from byol_tpu_torch.parallel import mesh
+    from byol_tpu_torch.training.build import setup_training
+    cfg = config_from_args(build_parser().parse_args(spec["argv"]))
+    rcfg = resolve(cfg, num_train_samples=256, num_test_samples=32,
+                   output_size=10, input_shape=spec["x"].shape[1:])
+    _, state, _, _, _ = setup_training(rcfg, "cpu")
+    state.net.train()
+    x = mesh.shard_batch({"x": spec["x"]})["x"]
+    with torch.no_grad():
+        out = state.net(torch.from_numpy(x))["projection"]
+    return {"out": out, "stats": {k: v.clone() for k, v in
+                                  state.batch_stats().items()}}
+
+
+JOBS = {"train": train, "fit_cli": fit_cli, "fit_sigterm": fit_sigterm,
+        "linear_eval": linear_eval,
+        "lockstep": lockstep, "gather": gather, "bn_stats": bn_stats}
+
+
+def main(argv):
+    job, spec_path, store_path, rank, world, out = argv
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    from byol_tpu_torch.parallel import mesh
+    mesh.initialize_distributed(
+        "cpu", store=dist.FileStore(store_path, world), rank=rank,
+        world_size=world, timeout_s=120.0)
+    try:
+        result = JOBS[job](torch.load(spec_path, weights_only=False))
+        torch.save(result, out)
+    finally:
+        mesh.shutdown()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
