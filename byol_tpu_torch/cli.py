@@ -1,8 +1,15 @@
 """``python -m byol_tpu_torch [flags]``: BYOL pretraining (counterpart of
-byol_tpu/cli.py).  The flags keep the JAX package's spellings and defaults;
-this slice reads the ones below, the rest of the JAX surface comes later
-(ROADMAP.md, section 1 item 15).  ``--download`` is refused when nonzero:
-the port reads local files only.
+byol_tpu/cli.py).  Every flag of the JAX package's parser is here, with
+its spelling, default and choices, and maps to the same ``Config`` field.
+What the port has no code path for is refused with a message naming
+ROADMAP.md: ``--download`` when nonzero (the port reads local files
+only), ``--remat``/``--remat-policy`` other than ``none``, model and
+sequence parallelism, ``--profile-port`` above 0 (torch.profiler has no
+capture server).  ``--visdom-url``/``--visdom-port`` parse, warn and fall
+back to ``--grapher``, as in JAX.  ``--optimizer`` takes the JAX registry
+(rmsprop, adam, adadelta, sgd, momentum, lamb, lbfgs, each bare or as
+``lars_<base>``) behind ``--clip``; ``--check-numerics`` runs the backward
+under autograd's anomaly mode and checks the loss and params each step.
 
 It runs on the card unless ``--no-cuda`` asks for the CPU; with no card and
 no ``--no-cuda`` it exits 2 before building anything.  Checkpoints go to
@@ -39,8 +46,8 @@ import sys
 from typing import List, Optional
 
 from byol_tpu_torch.core.config import (Config, DeviceConfig, ModelConfig,
-                                        OptimConfig, RegularizerConfig,
-                                        TaskConfig)
+                                        OptimConfig, ParityConfig,
+                                        RegularizerConfig, TaskConfig)
 from byol_tpu_torch.parallel.mesh import world_size
 
 
@@ -77,6 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=3000)
     p.add_argument("--image-size-override", type=int, default=224)
     p.add_argument("--arch", type=str, default="resnet50")
+    p.add_argument("--representation-size", type=int, default=None,
+                   help="derived from the arch registry unless overridden")
     p.add_argument("--projection-size", type=int, default=256)
     p.add_argument("--head-latent-size", type=int, default=4096)
     p.add_argument("--base-decay", type=float, default=0.996)
@@ -93,8 +102,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-dir", type=str, default=".models",
                    help="checkpoints go to <model-dir>/<run name>")
     p.add_argument("--weight-decay", type=float, default=1e-6)
+    p.add_argument("--clip", type=float, default=0.0,
+                   help="value-clip the mean gradient to [-clip, clip] "
+                        "before the optimizer; 0 = off")
     p.add_argument("--lr", type=float, default=0.2)
+    p.add_argument("--lr-update-schedule", type=str, default="cosine",
+                   choices=("fixed", "cosine"))
     p.add_argument("--warmup", type=int, default=10, help="warmup epochs")
+    p.add_argument("--optimizer", type=str, default="lars_momentum",
+                   help="rmsprop | adam | adadelta | sgd | momentum | lamb | "
+                        "lbfgs, or lars_<one of them> (LARS around it)")
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient accumulation: split each batch into this "
                         "many strided microbatches, one update per batch; "
@@ -112,7 +129,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused-update", type=str, default="off",
                    choices=("off", "on"),
                    help="'on': the LARS+EMA update runs as the fused "
-                        "kernels K1a + K1b (ops/fused_update.py)")
+                        "kernels K1a + K1b (ops/fused_update.py); requires "
+                        "--optimizer lars_momentum with --clip 0")
     p.add_argument("--augment-placement", type=str, default="loader",
                    choices=("loader", "step"),
                    help="where two-view train augmentation runs: 'loader' "
@@ -141,6 +159,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug-step", action="store_true",
                    help="one minibatch per epoch")
     p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--check-numerics", action="store_true",
+                   help="fail fast on NaN/inf: the backward runs under "
+                        "torch.autograd.detect_anomaly(check_nan=True), and "
+                        "the loss and the updated params are checked every "
+                        "step (FloatingPointError naming the step); prefer "
+                        "--telemetry with --nan-policy, which adds no sync")
     p.add_argument("--fault-at-step", type=int, default=0,
                    help="fault injection: exit at step N without saving "
                         "(tests checkpoint/resume)")
@@ -197,16 +221,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard the test set across ranks (default: every "
                         "rank holds it whole and the batches are dealt)")
     p.add_argument("--zero1", type=str, default=None, choices=("off", "on"),
-                   help="ZeRO-1: 'on' shards the LARS momentum and the EMA "
-                        "target's update over the data axis (reduce-scatter "
-                        "of the gradient, K1a split + K1b on each rank's "
-                        "range, all-gather of the params); needs "
-                        "--fused-update on")
+                   help="ZeRO-1: 'on' shards the optimizer's state and the "
+                        "EMA target's update over the data axis (reduce-"
+                        "scatter of the gradient, the update on each rank's "
+                        "range: K1a split + K1b under --fused-update on, "
+                        "the optimizer's chain otherwise, all-gather of the "
+                        "params)")
+    p.add_argument("--fsdp", action="store_true",
+                   help=argparse.SUPPRESS)  # deprecated alias: --zero1 on
     p.add_argument("--flat-resident", type=str, default="off",
                    choices=("off", "on"),
                    help="the update state is resident and flat already; "
                         "'on' all-gathers the ZeRO-1 params in buckets of "
-                        "--flat-bucket-mb.  Requires --fused-update on")
+                        "--flat-bucket-mb")
     p.add_argument("--flat-bucket-mb", type=int, default=64,
                    help="bucket budget in MiB of gathered bytes "
                         "(--flat-resident on)")
@@ -219,6 +246,56 @@ def build_parser() -> argparse.ArgumentParser:
                    help="refused above 1 (ROADMAP.md, section 1 item 14)")
     p.add_argument("--remat", action="store_true",
                    help="refused (ROADMAP.md, section 1 item 14)")
+    p.add_argument("--remat-policy", type=str, default="none",
+                   choices=("none", "full", "nothing", "dots",
+                            "dots_no_batch", "save_block_out",
+                            "offload_block_out"),
+                   help="refused unless 'none' (ROADMAP.md, section 1 item "
+                        "14)")
+    p.add_argument("--fuse-views", action="store_true",
+                   help="one encoder call for both views (changes BN batch "
+                        "statistics vs the reference)")
+    p.add_argument("--stem", type=str, default="conv",
+                   choices=("conv", "space_to_depth"),
+                   help="ResNet stem: space_to_depth computes the 7x7/2 "
+                        "conv as a 4x4/1 conv on a 2x2 space-to-depth "
+                        "input (the same numbers and checkpoints)")
+    p.add_argument("--attn-impl", type=str, default="dense",
+                   choices=("dense", "flash", "ring"),
+                   help="ViT attention: dense, or flash (kernel K3); ring "
+                        "is refused (ROADMAP.md, section 1 item 14)")
+    p.add_argument("--pooling", type=str, default="cls",
+                   choices=("cls", "gap"), help="ViT feature pooling")
+    p.add_argument("--loss-norm-mode", type=str, default="paper",
+                   choices=("paper", "reference"), help="Quirk Q2 switch")
+    p.add_argument("--ema-init-mode", type=str, default="copy",
+                   choices=("copy", "reference"), help="Quirk Q1 switch")
+    p.add_argument("--schedule-granularity", type=str, default="step",
+                   choices=("step", "epoch"), help="Quirk Q5 switch")
+    p.add_argument("--ema-update-mode", type=str, default="post",
+                   choices=("post", "reference_pre"),
+                   help="'post' = paper (EMA of post-update params); "
+                        "'reference_pre' = reference (EMA of the pre-update "
+                        "params)")
+    p.add_argument("--normalize-inputs",
+                   action=argparse.BooleanOptionalAction, default=False,
+                   help="Quirk Q3 switch: standardize pixels with the "
+                        "ImageNet mean/std inside the step")
+    p.add_argument("--zero-init-residual",
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help="zero-init each residual block's last BN scale; "
+                        "--no-zero-init-residual matches the reference's "
+                        "torchvision init")
+    p.add_argument("--profile-port", type=int, default=0,
+                   help="refused above 0: torch.profiler has no on-demand "
+                        "capture server (ROADMAP.md, section 1)")
+    # the reference's visdom flags parse for drop-in compatibility; the
+    # backend is dropped, and setting them warns and falls back to
+    # --grapher
+    p.add_argument("--visdom-url", type=str, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--visdom-port", type=int, default=None,
+                   help=argparse.SUPPRESS)
     p.add_argument("--half", action="store_true", default=True,
                    help="bf16 compute (the default)")
     p.add_argument("--no-half", dest="half", action="store_false")
@@ -228,6 +305,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
+    # --fsdp is the pre-ZeRO-1 spelling of --zero1 on; an explicit
+    # --zero1 off beside it is a contradiction, not an override
+    if args.fsdp and args.zero1 == "off":
+        raise SystemExit(
+            "cli: --fsdp is the deprecated alias for --zero1 on; it "
+            "conflicts with the explicit --zero1 off also passed")
+    zero1 = "on" if args.fsdp else (args.zero1 or "off")
     return Config(
         task=TaskConfig(task=args.task, data_dir=args.data_dir,
                         batch_size=args.batch_size, epochs=args.epochs,
@@ -240,19 +324,26 @@ def config_from_args(args: argparse.Namespace) -> Config:
                         num_synth_samples=args.num_synth_samples,
                         valid_fraction=args.valid_fraction),
         model=ModelConfig(arch=args.arch,
+                          representation_size=(args.representation_size
+                                               or 2048),
                           projection_size=args.projection_size,
                           head_latent_size=args.head_latent_size,
                           base_decay=args.base_decay,
                           ema_scaling_reference_batch=(
                               args.ema_scaling_reference_batch),
                           weight_initialization=args.weight_initialization,
-                          model_dir=args.model_dir, remat=args.remat),
+                          model_dir=args.model_dir, remat=args.remat,
+                          remat_policy=args.remat_policy,
+                          fuse_views=args.fuse_views, stem=args.stem,
+                          attn_impl=args.attn_impl, pooling=args.pooling),
         regularizer=RegularizerConfig(
             weight_decay=args.weight_decay,
             color_jitter_strength=args.color_jitter_strength,
             aug_spec=args.aug_spec, polyak_ema=args.polyak_ema,
             convert_to_sync_bn=args.convert_to_sync_bn),
-        optim=OptimConfig(lr=args.lr, warmup=args.warmup,
+        optim=OptimConfig(clip=args.clip, lr=args.lr,
+                          lr_update_schedule=args.lr_update_schedule,
+                          warmup=args.warmup, optimizer=args.optimizer,
                           early_stop=args.early_stop,
                           accum_steps=args.accum_steps,
                           accum_bn_mode=args.accum_bn_mode,
@@ -266,21 +357,33 @@ def config_from_args(args: argparse.Namespace) -> Config:
                             model_parallel=args.model_parallel,
                             sequence_parallel=args.sequence_parallel,
                             dcn_data_parallel=args.dcn_data_parallel,
-                            zero1=args.zero1 or "off",
+                            zero1=zero1,
                             flat_resident=args.flat_resident,
                             flat_bucket_mb=args.flat_bucket_mb,
                             debug_step=args.debug_step,
                             seed=args.seed, half=args.half,
+                            check_numerics=args.check_numerics,
                             fault_at_step=args.fault_at_step,
                             save_on_signal=args.save_on_signal,
                             telemetry=args.telemetry,
                             telemetry_interval=args.telemetry_interval,
                             nan_policy=args.nan_policy, spans=args.spans,
-                            watchdog_timeout=args.watchdog_timeout))
+                            watchdog_timeout=args.watchdog_timeout),
+        parity=ParityConfig(
+            loss_norm_mode=args.loss_norm_mode,
+            ema_init_mode=args.ema_init_mode,
+            schedule_granularity=args.schedule_granularity,
+            normalize_inputs=args.normalize_inputs,
+            ema_update_mode=args.ema_update_mode,
+            zero_init_residual=args.zero_init_residual))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.visdom_url or args.visdom_port:
+        print("byol_tpu_torch: the visdom backend is not supported; "
+              f"metrics go to --grapher={args.grapher} under --log-dir",
+              file=sys.stderr)
     from byol_tpu_torch.parallel import mesh
     try:
         device = mesh.local_device(args.no_cuda)
@@ -308,6 +411,9 @@ def _run(args: argparse.Namespace, device) -> int:
     # SystemExit (143 after a SIGTERM checkpoint, or --fault-at-step) is
     # not caught here: it is the process's exit
     try:
+        if args.profile_port:
+            from byol_tpu_torch.observability import profiling
+            profiling.start_server(args.profile_port)
         # one loader serves both training and the optional linear eval:
         # at ImageNet scale building it twice doubles the startup scan
         loader = get_loader(cfg, device=device)

@@ -17,9 +17,9 @@ module, and, given the target's state dict as ``like``, on any key that
 is missing, left over, or of another shape.
 
 :func:`train_state_from_flax` carries a whole JAX ``TrainState`` across
-(params, BN statistics, EMA target, LARS momentum trace, the Polyak
-params when there are any, schedule count, ``step`` and ``ema_step``),
-given as numpy nested dicts and ints: the
+(params, BN statistics, EMA target, the optimizer's state under optax's
+field names, the Polyak params when there are any, schedule count,
+``step`` and ``ema_step``), given as numpy nested dicts and ints: the
 caller unpacks the optax state, so nothing here needs optax.
 """
 from __future__ import annotations
@@ -107,29 +107,69 @@ def _split_params_and_buffers(
     return params, buffers
 
 
+def _stacked_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A tree whose leaves stack ``n`` trees along a leading axis (optax
+    lbfgs's memories) -> ``{name: (n, *torch shape)}``, each slice
+    converted like a params tree."""
+    flat = _flatten(tree)
+    n = {np.asarray(v).shape[0] for v in flat.values()}
+    if len(n) != 1:
+        raise ValueError(f"train_state_from_flax: stacked leaves of "
+                         f"lengths {sorted(n)}")
+    # from_flax takes the flattened paths as they are
+    slices = [from_flax({k: np.asarray(v)[i] for k, v in flat.items()})
+              for i in range(n.pop())]
+    return {k: torch.stack([s[k] for s in slices]) for k in slices[0]}
+
+
 def train_state_from_flax(state: Mapping[str, Any], *,
                           like: Optional[Mapping[str, torch.Tensor]] = None
                           ) -> Dict[str, Any]:
     """A JAX ``TrainState`` as numpy -> the port's train-state contents.
 
-    ``state`` holds ``params``, ``batch_stats``, ``target_params`` and
-    ``momentum`` (the LARS trace tree, which has the params' structure) as
-    nested dicts, optionally ``polyak_params`` (None or absent: no Polyak
-    average), and ``count`` (the schedule count), ``step`` and
-    ``ema_step`` as ints.  Returns ``params``, ``target``, ``momentum``
-    and, with Polyak params, ``polyak`` (torch-named parameter dicts,
-    converted like the params), ``buffers`` (the running statistics) and
-    the three counters as Python ints.
+    ``state`` holds ``params``, ``batch_stats`` and ``target_params`` as
+    nested dicts, the optimizer's state, optionally ``polyak_params``
+    (None or absent: no Polyak average), and ``count`` (the schedule
+    count), ``step`` and ``ema_step`` as ints.  The optimizer's state is
+    either ``momentum`` (the lars_momentum trace tree) or ``opt_state``,
+    ``{optax field: tree or int}`` under optax's field names (``trace``;
+    ``mu``, ``nu``, ``count``; ``nu``; ``e_g``, ``e_x``; lbfgs's
+    ``params``, ``updates``, ``diff_params_memory``,
+    ``diff_updates_memory`` (each leaf stacked 10 deep), ``weights_memory``
+    and ``count``), with ``optimizer`` its registry name.  Returns
+    ``params``, ``target``, the optimizer's fields under the port's names
+    (optim/transforms.py::STATE_FIELDS; stacked fields as ``(10, *shape)``
+    per name) and, with Polyak params, ``polyak`` (torch-named parameter
+    dicts, converted like the params), ``buffers`` (the running
+    statistics), ``opt_counts``, ``optimizer`` when given, and the three
+    counters as Python ints.  Every tree must have the params' structure.
     ``like`` (the online net's state dict) checks every key and shape.
     """
+    from byol_tpu_torch.optim.transforms import FROM_OPTAX
     online = from_flax(state["params"], state.get("batch_stats"), like=like)
     params, buffers = _split_params_and_buffers(online)
-    out: Dict[str, Any] = {"params": params, "buffers": buffers}
-    carried = [("target_params", "target"), ("momentum", "momentum")]
+    out: Dict[str, Any] = {"params": params, "buffers": buffers,
+                           "opt_counts": {}}
+    carried = [("target_params", "target", from_flax(state["target_params"]))]
+    if "opt_state" in state:
+        out["optimizer"] = state["optimizer"]
+        for field, value in state["opt_state"].items():
+            name = FROM_OPTAX.get(field, field)
+            if field == "count":
+                out["opt_counts"]["count"] = int(value)
+            elif field == "weights_memory":
+                out[name] = torch.from_numpy(
+                    np.array(value, dtype=np.float32, copy=True))
+            elif field.endswith("_memory"):
+                carried.append((field, name, _stacked_from_flax(value)))
+            else:
+                carried.append((field, name, from_flax(value)))
+    else:
+        carried.append(("momentum", "momentum", from_flax(state["momentum"])))
     if state.get("polyak_params") is not None:
-        carried.append(("polyak_params", "polyak"))
-    for key, name in carried:
-        tree = from_flax(state[key])
+        carried.append(("polyak_params", "polyak",
+                        from_flax(state["polyak_params"])))
+    for key, name, tree in carried:
         if set(tree) != set(params):
             raise ValueError(
                 f"train_state_from_flax: {key} does not have the params' "

@@ -179,14 +179,9 @@ def _refuse_unported(cfg: Config) -> None:
             "--dcn-data-parallel > 1 (NCCL builds its own rings over NVLink "
             "and InfiniBand; the port's data axis is one process group)",
             "section 1 item 10")
-    if cfg.device.zero1 == "on" and cfg.optim.fused_update != "on":
-        raise _not_ported(
-            "--zero1 on with --fused-update off (the port shards the fused "
-            "update, K1a split + K1b on each rank's range of the flat "
-            "buffers; the unfused chain updates whole leaves)",
-            "section 1 item 10")
     if cfg.model.remat or cfg.model.remat_policy != "none":
-        raise _not_ported("--remat / --remat-policy", "section 1 item 14")
+        raise _not_ported("--remat / --remat-policy other than 'none'",
+                          "section 1 item 14")
 
 
 def resolve(cfg: Config, *, num_train_samples: int, num_test_samples: int,
@@ -241,8 +236,6 @@ def resolve(cfg: Config, *, num_train_samples: int, num_test_samples: int,
                                                  cfg.optim.clip)
         if reason is not None:
             raise ValueError(f"--fused-update on: {reason}")
-    if cfg.device.flat_resident == "on" and cfg.optim.fused_update != "on":
-        raise ValueError("--flat-resident on requires --fused-update on")
     if cfg.device.flat_bucket_mb < 1:
         raise ValueError(f"flat_bucket_mb must be >= 1, got "
                          f"{cfg.device.flat_bucket_mb}")

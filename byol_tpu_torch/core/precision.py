@@ -25,3 +25,11 @@ BF16 = Policy(compute_dtype=torch.bfloat16)
 def get_policy(half: bool) -> Policy:
     """Map the ``--half`` flag to a policy."""
     return BF16 if half else FP32
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is in float64: the statistics, losses
+    and metrics the JAX package computes in fp32 (a float64 net, as the
+    tests build one, keeps float64 throughout)."""
+    return x if x.dtype == torch.float64 else x.float()
+

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from byol_tpu_torch.core.precision import at_least_fp32
 from byol_tpu_torch.parallel.collectives import psum
 from byol_tpu_torch.parallel.mesh import world_size
 
@@ -127,7 +128,7 @@ class BatchNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
+        x = at_least_fp32(x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,

@@ -7,7 +7,8 @@
   norms span every rank's rows, the global batch's, as in JAX's GSPMD
   step: the squared norms are all-reduced, differentiably.
 
-Everything in float32; the targets never carry a gradient.
+Everything in float32 (float64 for a float64 net); the targets never
+carry a gradient.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from byol_tpu_torch.core.precision import at_least_fp32
 from byol_tpu_torch.objectives.metrics import masked_mean
 from byol_tpu_torch.parallel.collectives import psum
 
@@ -30,7 +32,7 @@ def regression_loss(x: torch.Tensor, y: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
                     sync: bool = False) -> torch.Tensor:
     """Per-sample negative scaled dot product, shape (B,)."""
-    x, y = x.float(), y.float()
+    x, y = at_least_fp32(x), at_least_fp32(y)
     if norm_mode == "paper":
         x = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
         y = y / (torch.linalg.vector_norm(y, dim=-1, keepdim=True) + 1e-12)

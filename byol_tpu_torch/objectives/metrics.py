@@ -10,6 +10,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from byol_tpu_torch.core.precision import at_least_fp32
+
 
 def masked_mean(values: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -21,7 +23,8 @@ def masked_mean(values: torch.Tensor,
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean softmax cross-entropy over integer labels."""
-    per = F.cross_entropy(logits.float(), labels.long(), reduction="none")
+    per = F.cross_entropy(at_least_fp32(logits), labels.long(),
+                          reduction="none")
     return masked_mean(per, mask)
 
 

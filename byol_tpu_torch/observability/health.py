@@ -163,9 +163,10 @@ def health_stats(*, grads: Tensors, update_norm: torch.Tensor,
     """The packed health vector of one optimizer step.
 
     ``update_norm`` is the norm of the applied update: the train step
-    passes ``lr * |m'|``, the norm of the ``-lr m'`` its chain adds, so no
-    update tensor is made for the diagnostic (JAX's function takes the
-    update tree).  ``collapse`` is ``collapse_stats`` of the stop-grad
+    passes ``lr * |m'|`` under the fused update (the norm of the ``-lr
+    m'`` its kernels add, so no update tensor is made for the diagnostic)
+    and the norm of the update its chain returned otherwise (JAX's
+    function takes the update tree).  ``collapse`` is ``collapse_stats`` of the stop-grad
     target projections, mean-accumulated over the microbatches;
     ``trust_ratios`` the ratios the update applied to the adapted leaves
     (K1a's own under the fused update).  ``grad_stats`` (the gradient's

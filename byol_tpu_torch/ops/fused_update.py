@@ -19,11 +19,13 @@ ResNet-50 shape and what the design does about them.
   write and EMA tick, in place on p, m and t.
 - :func:`fused_lars_ema_update_buffers` runs both on the flat buffers (the
   counterpart of ``_fused_update_buffers``).
-- K1a split for ZeRO-1: :func:`segment_sums` (the range's float64
-  per-segment sums, stopped before the square root) and
-  :func:`segment_epilogue` (global sums -> norms, trust scale);
+- K1a split: :func:`segment_sums` (the range's float64 per-segment
+  sums, stopped before the square root) and :func:`segment_epilogue`
+  (global sums -> norms, trust scale);
   :func:`fused_lars_ema_update_zero1` all-reduces the sums between them
-  and runs K1b on the range.
+  and runs K1b on the range (ZeRO-1's fused update), and every LARS and
+  LAMB chain of the optimizer registry takes its per-leaf norms from the
+  pair (optim/transforms.py), on the whole buffer or a range.
 
 Each wrapper runs its plain version (``*_reference``) for CPU tensors,
 launches its kernel for CUDA tensors, and raises otherwise: nothing falls
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -111,8 +114,10 @@ def pack_flat(leaves: Sequence[torch.Tensor], seg: SegmentMap) -> torch.Tensor:
     if len(leaves) != seg.num_segments:
         raise ValueError(f"{len(leaves)} leaves vs {seg.num_segments} "
                          "segments")
-    buf = torch.zeros(seg.total, dtype=torch.float32,
-                      device=leaves[0].device)
+    # fp32, or float64 for float64 leaves (the plain versions' tests)
+    dtype = functools.reduce(torch.promote_types,
+                             [leaf.dtype for leaf in leaves], torch.float32)
+    buf = torch.zeros(seg.total, dtype=dtype, device=leaves[0].device)
     for leaf, start, size in zip(leaves, seg.starts, seg.sizes):
         if leaf.numel() != size:
             raise ValueError(f"leaf has {leaf.numel()} elements, segment "
@@ -190,10 +195,15 @@ class FusedLayout:
         return scale[self.adapted_idx]
 
 
-def _check(layout: FusedLayout, *bufs: torch.Tensor) -> None:
+def _check(layout: FusedLayout, *bufs: torch.Tensor,
+           cpu_float64: bool = False) -> None:
+    """Contiguous fp32 buffers of the range on the layout's device;
+    ``cpu_float64``: CPU tensors (the plain version) may be float64."""
     dev = bufs[0].device
+    dtypes = ((torch.float32, torch.float64)
+              if cpu_float64 and dev.type == "cpu" else (torch.float32,))
     for b in bufs:
-        if (b.dtype != torch.float32 or b.numel() != layout.total
+        if (b.dtype not in dtypes or b.numel() != layout.total
                 or not b.is_contiguous() or b.device != dev):
             raise ValueError(
                 f"fused update: buffers must be contiguous fp32 with "
@@ -294,7 +304,8 @@ def segment_sums(p: torch.Tensor, g: torch.Tensor,
     p)^2) of the range's rows per segment, zeros on segments outside the
     range.  ``p`` and ``g`` are the range's elements."""
     global SEGMENT_SUMS_LAUNCHES
-    _check(layout, p, g)
+    # float64 buffers (a float64 net's) are summed by the plain version
+    _check(layout, p, g, cpu_float64=True)
     if p.device.type == "cpu":
         return segment_sums_reference(p, g, layout)
     if p.device.type != "cuda":

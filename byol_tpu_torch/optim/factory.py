@@ -1,7 +1,14 @@
-"""Optimizer factory (counterpart of byol_tpu/optim/factory.py), cut to the
-``lars_momentum`` chain: the default, and the one the fused update kernels
-implement.  Every other registry entry raises (ROADMAP.md, section 1
-item 5)."""
+"""Optimizer factory / registry (counterpart of byol_tpu/optim/factory.py).
+
+The registry is JAX's: rmsprop, adam, adadelta, sgd, momentum (0.9), lamb
+and lbfgs, each bare or as ``lars_<base>`` (LARS around the base, eps 0),
+behind an optional value clip (``clip > 0``).  The lr is scaled to the
+global batch (lr * batch / 256) for sgd and momentum only.  Bare ``lars``
+and unknown names raise as JAX raises.  :class:`~byol_tpu_torch.optim.
+transforms.Chain` runs the chain on flat buffers; :class:`LarsMomentum`
+is the lars_momentum chain leaf by leaf, the plain version the fused
+kernels (``--fused-update on``, lars_momentum with clip 0 only) are held
+against."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,10 +18,10 @@ import torch
 
 from byol_tpu_torch.optim import lars as lars_lib
 from byol_tpu_torch.optim import schedules as sched_lib
+from byol_tpu_torch.optim.transforms import BASES, MOMENTUM_DECAY, Chain
 
-# the 'momentum' decay (reference main.py:311), also the one the fused
-# kernel ticks
-MOMENTUM_DECAY = 0.9
+__all__ = ["MOMENTUM_DECAY", "Chain", "LarsMomentum", "build_optimizer",
+           "fused_update_unsupported_reason", "is_lars_optimizer"]
 
 
 def is_lars_optimizer(opt_name: str) -> bool:
@@ -41,7 +48,8 @@ def fused_update_unsupported_reason(opt_name: str,
 
 @dataclasses.dataclass(frozen=True)
 class LarsMomentum:
-    """The unfused lars_momentum chain (wd fold-in, trust ratio, trace)."""
+    """The lars_momentum chain (wd fold-in, trust ratio, trace), leaf by
+    leaf: the reference the fused kernels are held against."""
 
     weight_decay: float
     momentum_decay: float = MOMENTUM_DECAY
@@ -62,22 +70,26 @@ def build_optimizer(opt_name: str, *, base_lr: float, global_batch_size: int,
                     weight_decay: float, total_units: int, warmup_units: int,
                     lr_schedule_kind: str = "cosine",
                     steps_per_epoch: Optional[int] = None,
-                    clip: float = 0.0
-                    ) -> Tuple[LarsMomentum, sched_lib.Schedule]:
+                    clip: float = 0.0,
+                    trust_coefficient: float = lars_lib.TRUST_COEFFICIENT_DEFAULT,
+                    lars_eps: float = lars_lib.LARS_EPS_DEFAULT
+                    ) -> Tuple[Chain, sched_lib.Schedule]:
     """The chain and its lr schedule; schedule units are steps, or epochs
     with ``steps_per_epoch`` set (the epoch staircase)."""
     full = opt_name.lower().strip()
-    if full != "lars_momentum":
-        raise NotImplementedError(
-            f"optimizer {opt_name!r} is not ported to byol_tpu_torch yet; "
-            "only lars_momentum is (ROADMAP.md, section 1 item 5)")
-    if clip > 0.0:
-        raise NotImplementedError(
-            "--clip > 0 is not ported to byol_tpu_torch yet (ROADMAP.md, "
-            "section 1 item 5)")
-    lr = sched_lib.linear_scaled_lr(base_lr, global_batch_size, "momentum")
+    if full == "lars":
+        raise ValueError(
+            "bare 'lars' is a wrapper, not an optimizer; use lars_<base>, "
+            "e.g. 'lars_momentum' (the reference default, main.py:88-89)")
+    is_lars = is_lars_optimizer(full)
+    name = full.split("_")[-1] if is_lars else full
+    if name not in BASES:
+        raise ValueError(f"unknown optimizer {name!r}")
+    lr = sched_lib.linear_scaled_lr(base_lr, global_batch_size, name)
     schedule = sched_lib.warmup_cosine(lr, warmup_units, total_units,
                                        kind=lr_schedule_kind)
     if steps_per_epoch is not None:
         schedule = sched_lib.epoch_granular(schedule, steps_per_epoch)
-    return LarsMomentum(weight_decay=weight_decay), schedule
+    return Chain(name=full, base=name, lars=is_lars,
+                 weight_decay=weight_decay, clip=clip,
+                 trust_coefficient=trust_coefficient, eps=lars_eps), schedule

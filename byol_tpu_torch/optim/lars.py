@@ -11,8 +11,9 @@ The order is the reference's, and it matters:
    update is ``p' = p - lr * m'``.
 
 :func:`lars_momentum_update` is that chain in plain torch ops, leaf by
-leaf, in place: the unfused path of the train step, and the plain version
-the fused kernels (ops/fused_update.py) are held against.
+leaf, in place: the plain version the fused kernels (ops/fused_update.py)
+are held against.  The train step's unfused path runs LARS around any
+base on the flat buffers (optim/transforms.py).
 """
 from __future__ import annotations
 

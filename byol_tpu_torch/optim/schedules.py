@@ -8,7 +8,9 @@ device scalar back.  The arithmetic is float32, as the JAX schedules' is.
   then cosine annealing to 0 over ``total - warmup`` units, or a constant
   (``kind='fixed'``);
 - :func:`epoch_granular`: the reference's per-epoch staircase (Quirk Q5);
-- :func:`linear_scaled_lr`: lr * batch / 256 for the sgd/momentum family;
+- :func:`linear_scaled_lr`: lr * batch / 256 for the sgd/momentum family
+  (the factory passes the registry's base name: ``lars_adam`` -> adam,
+  unscaled);
 - :func:`cosine_ema_decay`: tau(k) = 1 - (1 - tau0) (cos(pi k / K) + 1) / 2.
 """
 from __future__ import annotations

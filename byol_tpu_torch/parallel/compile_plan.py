@@ -23,6 +23,7 @@ from byol_tpu_torch.parallel import collectives
 from byol_tpu_torch.parallel.flat_state import DEFAULT_BUCKET_MB
 from byol_tpu_torch.parallel.mesh import AXIS_NAMES, DATA_AXIS, rank
 from byol_tpu_torch.parallel.zero1 import Zero1Context
+from byol_tpu_torch.training.state import opt_fields
 
 # JAX's per-entry-point donations, kept for the run header: the port's
 # train step writes the state's buffers in place, and the serving engine
@@ -52,7 +53,8 @@ class CompilePlan:
         """Make ``state`` (fresh from ``create_train_state(pad_rows_to=
         self.pad_rows_to)``) this plan's: rank 0's params, target, Polyak
         average and BatchNorm statistics on every rank, and under ZeRO-1
-        the rank's range context with the momentum cut to its shard."""
+        the rank's range context with the optimizer's state cut to its
+        shard."""
         if collectives.is_initialized():
             # every rank draws the same weights from the seed; the
             # broadcast makes the replicas' start equal by construction
@@ -73,7 +75,12 @@ class CompilePlan:
                 f"{ctx.total_elements} elements; the state has "
                 f"{state.params.numel()} (create_train_state(pad_rows_to="
                 f"{self.world}))")
-        state.momentum = ctx.shard_of(state.momentum).clone()
+        # every buffer of the optimizer's state but lbfgs's one vector
+        # lives on the rank's range only
+        kinds = opt_fields(state.optimizer)
+        state.opt = {name: (buf if kinds[name] == "vector"
+                            else ctx.shard_of(buf).clone())
+                     for name, buf in state.opt.items()}
         state.zero1 = ctx
 
     def describe(self) -> Dict[str, Any]:
@@ -90,14 +97,15 @@ class CompilePlan:
 
     # -- checkpoint codec ------------------------------------------------
     def to_canonical(self, state) -> Dict[str, Any]:
-        """The layout-free host tree of ``state`` (a collective under
-        ZeRO-1: every rank calls it)."""
+        """The layout-free host tree of ``state``, the optimizer's state
+        gathered whole (a collective under ZeRO-1: every rank calls
+        it)."""
         from byol_tpu_torch.training.state import canonical_state
         return canonical_state(state)
 
     def from_canonical(self, state, tree: Mapping[str, Any]) -> None:
         """Load a layout-free tree into ``state``, in place; under ZeRO-1
-        each rank keeps its range of the momentum."""
+        each rank keeps its range of the optimizer's state."""
         from byol_tpu_torch.training.state import load_canonical
         load_canonical(state, tree)
 

@@ -2,35 +2,40 @@
 byol_tpu/parallel/zero1.py).
 
 The online params stay whole on every rank (every rank runs the forward),
-and so does the Polyak average; the LARS momentum and the EMA target
+and so does the Polyak average; the optimizer's state and the EMA target
 (JAX's ``ZERO1_STATE_FIELDS``) are updated on a 1/W range per rank, and
-the momentum lives only there.  The layout is PyTorch's own idiom, FSDP's
-flat parameter, not JAX's leaf-partitioned one: rank r owns the
-contiguous rows ``[r R, (r + 1) R)`` of the flat buffers, ``R`` the
+the optimizer's state lives only there.  The layout is PyTorch's own
+idiom, FSDP's flat parameter, not JAX's leaf-partitioned one: rank r owns
+the contiguous rows ``[r R, (r + 1) R)`` of the flat buffers, ``R`` the
 128-element row count padded to a multiple of the world and divided by
 it.  The train state's buffers carry that padding (zeros, inert under
 every norm and every elementwise step).  One optimizer step:
 
 1. ``reduce_scatter`` of the flat gradient: each rank gets the ranks'
    mean over its range;
-2. K1a split on the range, an all-reduce of the (nseg, 2) float64
+2. the update of the range.  Under ``--fused-update on`` (lars_momentum):
+   K1a split on the range, an all-reduce of the (nseg, 2) float64
    per-segment sums, K1a's epilogue: the trust ratios of the whole
    buffer; then K1b on the range, writing the range's params, momentum
-   and target (ops/fused_update.py::fused_lars_ema_update_zero1);
+   and target (ops/fused_update.py::fused_lars_ema_update_zero1).  Without
+   it, any chain of the registry on the range (optim/transforms.py), its
+   every cross-element sum (LARS's and LAMB's per-segment sums, lbfgs's
+   vdots) all-reduced, then the EMA tick of the range's target;
 3. the params and the target are all-gathered whole again (in buckets
    under ``--flat-resident on``), ready for the next forward and for
    eval, as JAX gathers the target before its forward.
 
-It computes JAX's function: the trust ratio depends only on the global
-per-segment sums, and the rest of the update is elementwise.  The layout
-never reaches a checkpoint: ``canonical_state`` gathers the momentum and
-``load_canonical`` keeps the rank's range (training/state.py), so a
-checkpoint written at world N restores at world M under either setting.
+It computes JAX's function: the trust ratios and lbfgs's scalars depend
+only on global sums, and the rest of the update is elementwise.  The
+layout never reaches a checkpoint: ``canonical_state`` gathers the
+optimizer's state and ``load_canonical`` keeps the rank's range
+(training/state.py), so a checkpoint written at world N restores at world
+M under either setting.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, MutableMapping, Optional, Tuple
 
 import torch
 
@@ -40,7 +45,7 @@ from byol_tpu_torch.parallel import collectives
 from byol_tpu_torch.parallel.flat_state import Bucket, plan_buckets
 
 # the port's names of JAX's ("opt_state", "target_params")
-ZERO1_STATE_FIELDS = ("momentum", "target")
+ZERO1_STATE_FIELDS = ("opt", "target")
 
 
 def rows_per_rank(num_rows: int, world: int) -> int:
@@ -117,9 +122,9 @@ class Zero1Context:
                momentum: torch.Tensor, target: torch.Tensor, *, lr: float,
                tau: float, momentum_decay: float, trust_coefficient: float,
                eps: float, ema_pre: bool) -> torch.Tensor:
-        """The sharded update, then the params and the target gathered
-        whole.  ``momentum`` is the rank's shard.  Returns the trust
-        vector."""
+        """The sharded fused update, then the params and the target
+        gathered whole.  ``momentum`` is the rank's shard.  Returns the
+        trust vector."""
         g = self.last_grad = self.grad_range(grads)
         rng = self._range()
         trust = fused_lib.fused_lars_ema_update_zero1(
@@ -130,6 +135,33 @@ class Zero1Context:
         self.gather(params)
         self.gather(target)
         return trust
+
+    def update_chain(self, chain, params: torch.Tensor, grads: torch.Tensor,
+                     opt: Dict[str, torch.Tensor],
+                     counts: MutableMapping[str, int],
+                     target: torch.Tensor, *, lr: float, tau: float,
+                     ema_pre: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The sharded unfused update: ``chain`` (optim/transforms.py) on
+        the range, its sums all-reduced, the range's EMA tick, then the
+        params and the target gathered whole.  ``opt`` holds the rank's
+        shards.  Returns (trust vector, the range's applied update)."""
+        g = self.last_grad = self.grad_range(grads)
+        rng = self._range()
+        n = self.layout.total
+        p, t = params[rng], target[rng]
+        if ema_pre:
+            t.mul_(tau).add_(p, alpha=1.0 - tau)
+        kinds = dict(chain.state_fields)
+        u, trust = chain.update(
+            p, g, {k: (v if kinds[k] == "vector" else v[..., :n])
+                   for k, v in opt.items()},
+            counts, lr=lr, layout=self.layout, reduce=collectives.psum_)
+        p.add_(u)
+        if not ema_pre:
+            t.mul_(tau).add_(p, alpha=1.0 - tau)
+        self.gather(params)
+        self.gather(target)
+        return trust, u
 
     # -- gathers -------------------------------------------------------------
     def gather(self, buf: torch.Tensor) -> torch.Tensor:
@@ -151,17 +183,21 @@ class Zero1Context:
                 collectives.broadcast_(buf[a * LANES:b * LANES], r)
         return buf
 
-    def gather_momentum(self, shard: torch.Tensor) -> torch.Tensor:
-        """The whole momentum buffer from the ranks' shards (for a
-        checkpoint: a collective, every rank calls it)."""
+    def gather_shard(self, shard: torch.Tensor) -> torch.Tensor:
+        """The whole buffer from the ranks' shards, ``(..., shard)`` ->
+        ``(..., whole)`` (for a checkpoint: a collective, every rank
+        calls it)."""
+        if shard.dim() > 1:
+            return torch.stack([self.gather_shard(row) for row in shard])
         full = torch.zeros(self.total_elements, dtype=shard.dtype,
                            device=shard.device)
         return collectives.all_gather_into(full, shard)
 
     def shard_of(self, full: torch.Tensor) -> torch.Tensor:
-        """This rank's range of a whole buffer, padding included."""
+        """This rank's range of a whole buffer (along its last dim),
+        padding included."""
         per = self.shard_elements
-        return full[self.rank * per:(self.rank + 1) * per]
+        return full[..., self.rank * per:(self.rank + 1) * per]
 
     def global_sq_norm(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of squares over the ranks' ranges of a sharded tensor."""

@@ -246,8 +246,8 @@ def restore_params_for_serving(cfg, checkpoint_dir: str, *,
     the best with ``best``, or ``epoch``.
 
     The checkpoint is read on the host and everything but the forward
-    pass's weights is dropped there: the LARS momentum and the EMA target
-    never reach the card."""
+    pass's weights is dropped there: the optimizer's state and the EMA
+    target never reach the card."""
     from byol_tpu_torch.checkpoint import CheckpointStore
     from byol_tpu_torch.training.build import build_net
 

@@ -13,7 +13,7 @@ from byol_tpu_torch.core.rng import split_named
 from byol_tpu_torch.models.byol_net import BYOLNet, build_byol_net
 from byol_tpu_torch.models.init import apply_weight_init
 from byol_tpu_torch.models.registry import get_spec
-from byol_tpu_torch.optim.factory import build_optimizer
+from byol_tpu_torch.optim.factory import build_optimizer, is_lars_optimizer
 from byol_tpu_torch.parallel.compile_plan import CompilePlan
 from byol_tpu_torch.training.state import TrainState, create_train_state
 from byol_tpu_torch.training.steps import (StepConfig, make_eval_step,
@@ -47,7 +47,8 @@ def build_net(rcfg: ResolvedConfig,
 
 
 def build_tx(rcfg: ResolvedConfig):
-    """The lars_momentum chain and its lr schedule: warmup in epochs,
+    """The optimizer's chain (``--optimizer``, ``--clip``) and its lr
+    schedule: warmup in epochs,
     step-granular by default, the epoch staircase under
     ``schedule_granularity='epoch'``."""
     cfg = rcfg.cfg
@@ -95,7 +96,9 @@ def step_config(rcfg: ResolvedConfig) -> StepConfig:
         image_size=rcfg.input_shape[0],
         color_jitter_strength=cfg.regularizer.color_jitter_strength,
         aug_seed=cfg.device.seed,
-        telemetry=cfg.device.telemetry)
+        telemetry=cfg.device.telemetry,
+        lars_in_chain=is_lars_optimizer(cfg.optim.optimizer),
+        check_numerics=cfg.device.check_numerics)
 
 
 def setup_training(rcfg: ResolvedConfig, device,
@@ -108,7 +111,8 @@ def setup_training(rcfg: ResolvedConfig, device,
     ``--weight-initialization`` (from the ``weight_init`` stream of
     ``cfg.device.seed``), and flattened into the train state, which
     ``plan`` (default: one rank, no ZeRO-1) prepares: rank 0's weights on
-    every rank, and under ZeRO-1 the momentum cut to the rank's range."""
+    every rank, and under ZeRO-1 the optimizer's state cut to the rank's
+    range."""
     cfg = rcfg.cfg
     policy = get_policy(cfg.device.half)
     net = build_net(rcfg, generator)
@@ -120,7 +124,8 @@ def setup_training(rcfg: ResolvedConfig, device,
     plan = plan if plan is not None else CompilePlan()
     state = create_train_state(net, ema_init_mode=cfg.parity.ema_init_mode,
                                polyak_ema=cfg.regularizer.polyak_ema,
-                               pad_rows_to=plan.pad_rows_to)
+                               pad_rows_to=plan.pad_rows_to,
+                               optimizer=cfg.optim.optimizer)
     plan.prepare(state, weight_decay=cfg.regularizer.weight_decay)
     tx, schedule = build_tx(rcfg)
     scfg = step_config(rcfg)

@@ -1,8 +1,8 @@
 """Train state (counterpart of byol_tpu/training/state.py).
 
-The online parameters, their gradients, the LARS momentum and the EMA
-target (and, under ``polyak_ema``, the Polyak average) live as flat fp32
-buffers in the fused update's
+The online parameters, their gradients, the optimizer's state (the LARS
+momentum by default) and the EMA target (and, under ``polyak_ema``, the
+Polyak average) live as flat fp32 buffers in the fused update's
 :class:`~byol_tpu_torch.ops.fused_update.SegmentMap` layout: one segment
 per parameter leaf, in the JAX tree's order (module paths sorted
 component by component, as ``jax.tree_util`` orders dict keys), each padded
@@ -29,6 +29,12 @@ As in the JAX state:
 ``count`` is optax's schedule count (the lr schedule's argument); all three
 counters are host ints, so the step reads no device scalar back.
 
+The optimizer's state is named flat buffers (``opt``, the fields of
+``optim/transforms.py::STATE_FIELDS``: ``momentum`` for the momentum
+trace, ``mu`` and ``nu`` for adam and lamb, ...; lbfgs's memories are
+``(10, n)``, its ``weights_memory`` one (10,) vector) and host-int counts
+(``opt_counts``: adam's, lamb's and lbfgs's own ``count``).
+
 The net must be on its device before :func:`create_train_state`: moving it
 afterwards (``.to``) would replace the views with copies.  For the same
 reason :func:`load_converted` and :func:`load_canonical` copy into the
@@ -48,6 +54,25 @@ from torch import nn
 from byol_tpu_torch.models.layers import BatchNorm
 from byol_tpu_torch.ops.fused_update import (LANES, SegmentMap, pack_flat,
                                              segment_map_for, unpack_flat)
+from byol_tpu_torch.optim.transforms import (COUNT_FIELDS, LBFGS_MEMORY,
+                                             STATE_FIELDS)
+
+# the optimizer whose state a tree written before PR 11 holds
+LEGACY_OPTIMIZER = "lars_momentum"
+
+
+def optimizer_base(name: str) -> str:
+    """The registry's base of an optimizer name (``lars_adam`` ->
+    ``adam``)."""
+    base = name.lower().strip().split("_")[-1]
+    if base not in STATE_FIELDS:
+        raise ValueError(f"unknown optimizer {base!r}")
+    return base
+
+
+def opt_fields(name: str) -> Dict[str, str]:
+    """{state field: kind} of an optimizer (optim/transforms.py)."""
+    return dict(STATE_FIELDS[optimizer_base(name)])
 
 
 @dataclasses.dataclass
@@ -59,16 +84,29 @@ class TrainState:
     shapes: Tuple[torch.Size, ...]  # their shapes
     params: torch.Tensor           # (seg.total,) fp32
     grads: torch.Tensor
-    momentum: torch.Tensor
     target: torch.Tensor
+    optimizer: str = LEGACY_OPTIMIZER   # the registry name of the chain
+    # the chain's state: named flat buffers, and its host-int counts
+    opt: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    opt_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
     count: int = 0                 # lr schedule count
     step: int = 0                  # global optimizer step
     ema_step: int = 0              # tau schedule counter
     polyak: Optional[torch.Tensor] = None      # under polyak_ema > 0
     polyak_net: Optional[nn.Module] = None     # parameters: views of polyak
     # under --zero1 on: the rank's range (parallel/zero1.py::Zero1Context),
-    # and ``momentum`` holds that range only
+    # and every buffer of ``opt`` but a 'vector' holds that range only
     zero1: Optional[Any] = None
+
+    @property
+    def momentum(self) -> torch.Tensor:
+        """The momentum trace of the momentum chains (lars_momentum's
+        state)."""
+        return self.opt["momentum"]
+
+    @momentum.setter
+    def momentum(self, buf: torch.Tensor) -> None:
+        self.opt["momentum"] = buf
 
     def leaves(self, buf: torch.Tensor) -> List[torch.Tensor]:
         """Views of ``buf`` in the parameters' shapes, in segment order."""
@@ -118,15 +156,18 @@ def _shadow_net(net: nn.Module, names: Sequence[str], shapes,
 
 @torch.no_grad()
 def create_train_state(net: nn.Module, *, ema_init_mode: str = "copy",
-                       polyak_ema: float = 0.0,
-                       pad_rows_to: int = 1) -> TrainState:
+                       polyak_ema: float = 0.0, pad_rows_to: int = 1,
+                       optimizer: str = LEGACY_OPTIMIZER) -> TrainState:
     """Flatten ``net`` (already on its device) into the flat buffers and
     build its target network (and, under ``polyak_ema > 0``, its Polyak
-    net, starting as a copy of the params).  ``pad_rows_to``: the buffers
-    hold a multiple of this many 128-element rows, zeros past the last
-    segment (ZeRO-1 cuts them into equal ranges)."""
+    net, starting as a copy of the params), with the zero state of
+    ``optimizer``'s chain.  ``pad_rows_to``: the buffers hold a multiple
+    of this many 128-element rows, zeros past the last segment (ZeRO-1
+    cuts them into equal ranges).  The buffers take the parameters'
+    dtype: fp32, or float64 for a net made float64 (a test's)."""
     if ema_init_mode not in ("copy", "reference"):
         raise ValueError(f"unknown ema_init_mode {ema_init_mode!r}")
+    fields = opt_fields(optimizer)
     params = dict(net.named_parameters())
     names = tree_order(params)
     leaves = [params[n].detach() for n in names]
@@ -138,7 +179,11 @@ def create_train_state(net: nn.Module, *, ema_init_mode: str = "copy",
         p_buf = torch.cat([p_buf, p_buf.new_zeros(
             (rows - seg.num_rows) * LANES)])
     g_buf = torch.zeros_like(p_buf)
-    m_buf = torch.zeros_like(p_buf)
+    n = p_buf.numel()
+    shapes_of = {"flat": (n,), "stacked": (LBFGS_MEMORY, n),
+                 "vector": (LBFGS_MEMORY,)}
+    opt = {name: p_buf.new_zeros(shapes_of[kind])
+           for name, kind in fields.items()}
     t_buf = p_buf.clone() if ema_init_mode == "copy" else 0.004 * p_buf
     polyak = p_buf.clone() if polyak_ema > 0.0 else None
     # the shadows copy the net before its parameters become views
@@ -148,61 +193,109 @@ def create_train_state(net: nn.Module, *, ema_init_mode: str = "copy",
     _bind(net, names, shapes, p_buf, seg, g_buf)
     return TrainState(net=net, target_net=target_net, seg=seg, names=names,
                       shapes=shapes, params=p_buf, grads=g_buf,
-                      momentum=m_buf, target=t_buf,
+                      target=t_buf, optimizer=optimizer.lower().strip(),
+                      opt=opt,
+                      opt_counts={c: 0 for c in COUNT_FIELDS.get(
+                          optimizer_base(optimizer), ())},
                       ema_step=0 if ema_init_mode == "copy" else 1,
                       polyak=polyak, polyak_net=polyak_net)
 
 
-def _buffers(state: TrainState,
-             momentum: torch.Tensor) -> List[Tuple[str, torch.Tensor]]:
-    """The named flat buffers a checkpoint carries, Polyak's when on, with
-    ``momentum`` the whole momentum buffer (under ZeRO-1 the state holds
-    its rank's range only)."""
-    out = [("params", state.params), ("target", state.target),
-           ("momentum", momentum)]
-    if state.polyak is not None:
-        out.append(("polyak", state.polyak))
-    return out
+def _whole_opt(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The optimizer's buffers whole: under ZeRO-1 gathered from the
+    ranks' ranges (a collective, which every rank runs)."""
+    if state.zero1 is None:
+        return dict(state.opt)
+    kinds = opt_fields(state.optimizer)
+    return {name: (buf if kinds[name] == "vector"
+                   else state.zero1.gather_shard(buf))
+            for name, buf in state.opt.items()}
+
+
+def _stacked_tree(state: TrainState, buf: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """``{name: (LBFGS_MEMORY, *shape)}`` of a stacked buffer."""
+    rows = [state.tree(row) for row in buf]
+    return {name: torch.stack([r[name] for r in rows])
+            for name in state.names}
 
 
 @torch.no_grad()
-def _load(state: TrainState, trees: Mapping[str, Mapping[str, Any]],
+def _load(state: TrainState, trees: Mapping[str, Any],
           stats: Mapping[str, Any], counters: Mapping[str, Any],
           what: str) -> None:
     """Copy named trees into the state's views and buffers, in place: the
-    parameters stay views of the flat buffers the update kernels write."""
+    parameters stay views of the flat buffers the update kernels write.
+    A tree without ``optimizer`` holds lars_momentum's state (every tree
+    written before the registry was ported)."""
+    optimizer = str(trees.get("optimizer", LEGACY_OPTIMIZER)).lower().strip()
+    if optimizer != state.optimizer:
+        raise ValueError(f"{what}: the tree holds the state of optimizer "
+                         f"{optimizer!r}, and this state is of optimizer "
+                         f"{state.optimizer!r}")
     if "polyak" in trees and state.polyak is None:
         raise ValueError(f"{what}: the tree carries polyak, and this state "
                          "has no Polyak average (polyak_ema is 0)")
-    momentum = (state.momentum if state.zero1 is None
-                else torch.zeros_like(state.params))
-    for key, buf in _buffers(state, momentum):
+    kinds = opt_fields(state.optimizer)
+    # under ZeRO-1 a whole buffer is filled, then the rank keeps its range
+    whole = {name: (buf if state.zero1 is None or kinds[name] == "vector"
+                    else buf.new_zeros(buf.shape[:-1]
+                                       + state.params.shape))
+             for name, buf in state.opt.items()}
+    flat = [("params", state.params), ("target", state.target)]
+    flat += [(name, whole[name]) for name, kind in kinds.items()
+             if kind == "flat"]
+    if state.polyak is not None:
+        flat.append(("polyak", state.polyak))
+    for key, buf in flat:
         if key not in trees:
             raise ValueError(f"{what}: the tree has no {key!r}, which this "
                              "state needs")
-        tree = state.tree(buf)
-        if set(trees[key]) != set(tree):
-            raise ValueError(f"{what}: {key} names differ at "
-                             f"{sorted(set(trees[key]) ^ set(tree))[:4]}")
-        for name, view in tree.items():
-            src = trees[key][name]
-            if tuple(src.shape) != tuple(view.shape):
-                raise ValueError(f"{what}: {key} {name} has shape "
-                                 f"{tuple(src.shape)}, the state "
-                                 f"{tuple(view.shape)}")
-            view.copy_(src)
+        _copy_tree(state.tree(buf), trees[key], f"{what}: {key}")
+    for name, kind in kinds.items():
+        if name not in trees:
+            raise ValueError(f"{what}: the tree has no {name!r}, which "
+                             f"{state.optimizer}'s state needs")
+        if kind == "vector":
+            _copy_tree({name: whole[name]}, {name: trees[name]}, what)
+        elif kind == "stacked":
+            for k, row in enumerate(whole[name]):
+                _copy_tree(state.tree(row), {
+                    leaf: v[k] for leaf, v in trees[name].items()},
+                    f"{what}: {name}[{k}]")
     if state.zero1 is not None:
-        # the rank keeps its range of the momentum
-        state.momentum.copy_(state.zero1.shard_of(momentum))
+        for name, buf in state.opt.items():
+            if kinds[name] != "vector":
+                buf.copy_(state.zero1.shard_of(whole[name]))
     own = state.batch_stats()
     if set(stats) != set(own):
         raise ValueError(f"{what}: BatchNorm statistics differ at "
                          f"{sorted(set(stats) ^ set(own))}")
     for name, buf in own.items():
         buf.copy_(stats[name])
+    counts = counters.get("opt_counts", {})
+    if set(counts) != set(state.opt_counts):
+        raise ValueError(f"{what}: optimizer counts {sorted(counts)}, "
+                         f"{state.optimizer} keeps "
+                         f"{sorted(state.opt_counts)}")
+    state.opt_counts = {k: int(v) for k, v in counts.items()}
     state.count = int(counters["count"])
     state.step = int(counters["step"])
     state.ema_step = int(counters["ema_step"])
+
+
+def _copy_tree(views: Mapping[str, torch.Tensor], src: Mapping[str, Any],
+               what: str) -> None:
+    if set(src) != set(views):
+        raise ValueError(f"{what} names differ at "
+                         f"{sorted(set(src) ^ set(views))[:4]}")
+    for name, view in views.items():
+        value = src[name]
+        if tuple(value.shape) != tuple(view.shape):
+            raise ValueError(f"{what} {name} has shape "
+                             f"{tuple(value.shape)}, the state "
+                             f"{tuple(view.shape)}")
+        view.copy_(torch.as_tensor(value))
 
 
 def load_converted(state: TrainState, converted: Mapping[str, Any]) -> None:
@@ -213,8 +306,9 @@ def load_converted(state: TrainState, converted: Mapping[str, Any]) -> None:
 
 
 # the version of canonical_state's tree; load_canonical refuses any other.
-# ``polyak`` is in it only when the state has one, so a tree written
-# before Polyak was ported is the same format
+# ``polyak`` is in it only when the state has one, and a tree without
+# ``optimizer`` holds lars_momentum's state, so a tree written before
+# Polyak or the optimizer registry was ported is the same format
 CANONICAL_FORMAT = 1
 
 
@@ -222,23 +316,33 @@ CANONICAL_FORMAT = 1
 def canonical_state(state: TrainState) -> Dict[str, Any]:
     """The train state as a host tree that does not depend on the flat
     layout (as the JAX checkpoint does not depend on the mesh): ``params``,
-    ``target``, ``momentum`` and, under ``polyak_ema``, ``polyak`` keyed by
-    parameter name, each in its own shape; ``batch_stats``; the counters
-    ``step``, ``count`` and ``ema_step``; and ``format``.  Gradients are
-    not state: the step zeroes them.
+    ``target``, each flat field of the optimizer's state (``momentum``,
+    ``mu``, ...) and, under ``polyak_ema``, ``polyak`` keyed by parameter
+    name, each in its own shape; lbfgs's memories as ``(10, *shape)`` per
+    name and ``weights_memory`` as it is; ``optimizer`` (its registry
+    name) and ``opt_counts``; ``batch_stats``; the counters ``step``,
+    ``count`` and ``ema_step``; and ``format``.  Gradients are not state:
+    the step zeroes them.
 
     Every tensor is a CPU copy, complete when this returns: the update
     kernels write the flat buffers in place, so a later step cannot tear
     the tree while it is written."""
     out: Dict[str, Any] = {"format": CANONICAL_FORMAT, "step": state.step,
-                           "count": state.count, "ema_step": state.ema_step}
-    # under ZeRO-1 the whole momentum is gathered from the ranks' shards:
-    # a collective, which every rank runs
-    momentum = (state.momentum if state.zero1 is None
-                else state.zero1.gather_momentum(state.momentum))
-    for key, buf in _buffers(state, momentum):
-        # one copy of the whole buffer, then views in the leaves' shapes
+                           "count": state.count, "ema_step": state.ema_step,
+                           "optimizer": state.optimizer,
+                           "opt_counts": dict(state.opt_counts)}
+    kinds = opt_fields(state.optimizer)
+    bufs = [("params", state.params), ("target", state.target)]
+    if state.polyak is not None:
+        bufs.append(("polyak", state.polyak))
+    # one copy of each whole buffer, then views in the leaves' shapes
+    for key, buf in bufs:
         out[key] = state.tree(buf.to("cpu", copy=True))
+    for name, buf in _whole_opt(state).items():
+        host = buf.to("cpu", copy=True)
+        out[name] = (state.tree(host) if kinds[name] == "flat" else
+                     _stacked_tree(state, host) if kinds[name] == "stacked"
+                     else host)
     out["batch_stats"] = {name: buf.to("cpu", copy=True)
                           for name, buf in state.batch_stats().items()}
     return out
@@ -246,7 +350,9 @@ def canonical_state(state: TrainState) -> Dict[str, Any]:
 
 def load_canonical(state: TrainState, tree: Mapping[str, Any]) -> None:
     """Copy a :func:`canonical_state` tree into ``state``, in place.  The
-    tree carries ``polyak`` exactly when the state has a Polyak average."""
+    tree carries ``polyak`` exactly when the state has a Polyak average,
+    and the state of the state's own optimizer (lars_momentum's when it
+    names none)."""
     if tree.get("format") != CANONICAL_FORMAT:
         raise ValueError(f"load_canonical: tree format "
                          f"{tree.get('format')!r}, this code reads "

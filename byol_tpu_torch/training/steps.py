@@ -17,10 +17,12 @@ One train step, as the JAX step computes it:
    the detached representations of both views against the doubled labels;
 5. backward: the gradients land, in float32, in the state's flat gradient
    buffer (every ``.grad`` is a view of it);
-6. the update: with ``fused_update`` the kernels K1a + K1b
-   (ops/fused_update.py) do the LARS chain and the EMA tick in one pass
-   over the flat buffers; without it, the unfused chain
-   (optim/lars.py) and the EMA tick in plain torch ops.  The EMA averages
+6. the update: with ``fused_update`` (lars_momentum at clip 0 only) the
+   kernels K1a + K1b (ops/fused_update.py) do the LARS chain and the EMA
+   tick in one pass over the flat buffers; without it, the optimizer's
+   chain (optim/transforms.py: any registry entry, behind an optional
+   value clip; the split K1a gives LARS and LAMB their per-leaf norms) on
+   the flat buffers and the EMA tick in plain torch ops.  The EMA averages
    the post-update params, or the pre-update ones under
    ``ema_update_mode='reference_pre'``.  Under ``polyak_ema`` a Polyak
    average of the post-update params ticks after it, a plain torch op on
@@ -49,12 +51,14 @@ also computes the collapse signature of its stop-grad target projections
 (``health.collapse_stats`` of both views' rows; under 'global' one value
 per microbatch's row chunk), mean-accumulated like the metrics; after the
 update the step packs the health vector (observability/health.py) into
-``metrics['health']``: the averaged gradient's norm, the applied update's
-(``lr |m'|``), the post-step params', the params' distance to the ticked
-target, the trust ratios the update applied (K1a's own under
-``fused_update``), the non-finite count of gradient and loss, and the
-loss.  With ``telemetry='off'`` none of it runs and ``metrics`` has
-today's five keys.
+``metrics['health']``: the averaged gradient's norm (before any clip),
+the applied update's (``lr |m'|`` under ``fused_update``, the chain's own
+update's otherwise), the post-step params', the params' distance to the
+ticked target, the trust ratios the update applied (K1a's own under
+``fused_update``, LARS's for a ``lars_*`` chain, ones(1) for a bare one),
+the non-finite count of gradient and loss, and the loss.  With
+``telemetry='off'`` none of it runs and ``metrics`` has today's five
+keys.
 
 Data parallel (parallel/): inside a process group every rank runs this
 step on its rows of the global batch (``L = global / world``), and the
@@ -97,7 +101,8 @@ from byol_tpu_torch.objectives.metrics import cross_entropy, topk_accuracy
 from byol_tpu_torch.observability import health as health_lib
 from byol_tpu_torch.ops import fused_augment as fused_aug_lib
 from byol_tpu_torch.ops import fused_update as fused_lib
-from byol_tpu_torch.optim.factory import MOMENTUM_DECAY, LarsMomentum
+from byol_tpu_torch.optim.factory import (MOMENTUM_DECAY, Chain,
+                                          fused_update_unsupported_reason)
 from byol_tpu_torch.optim.schedules import cosine_ema_decay
 from byol_tpu_torch.parallel import collectives, mesh
 from byol_tpu_torch.training.linear_eval import normalize_images
@@ -128,6 +133,12 @@ class StepConfig:
     color_jitter_strength: float = 1.0
     aug_seed: int = 0                      # seed of the in-step draws
     telemetry: str = "off"                 # 'off' | 'epoch' | 'step'
+    # the chain is lars_<base> (factory.is_lars_optimizer): its trust
+    # ratios are the health vector's, ones(1) otherwise
+    lars_in_chain: bool = True
+    # --check-numerics: backward under autograd's anomaly mode, and the
+    # loss and the updated params checked for non-finite values each step
+    check_numerics: bool = False
 
 
 def _views(view1, view2, policy: Policy, normalize: bool):
@@ -156,7 +167,7 @@ def microbatch_split(x: torch.Tensor, k: int) -> List[torch.Tensor]:
     return [x[i::k] for i in range(k)]
 
 
-def make_train_step(tx: LarsMomentum, scfg: StepConfig,
+def make_train_step(tx: Chain, scfg: StepConfig,
                     lr_schedule: Callable[[int], float],
                     policy: Policy = FP32,
                     draw_views: Optional[DrawViews] = None
@@ -194,6 +205,13 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
                 "oracle cannot run the kernel under its microbatch vmap, "
                 "and the port keeps its refusal — use 'average' or "
                 "'microbatch'")
+    if scfg.lars_in_chain != tx.lars:
+        raise ValueError(f"StepConfig.lars_in_chain={scfg.lars_in_chain} "
+                         f"for optimizer {tx.name!r}")
+    if scfg.fused_update:
+        reason = fused_update_unsupported_reason(tx.name, tx.clip)
+        if reason is not None:
+            raise ValueError(f"fused_update=True: {reason}")
     if draw_views is None:
         def draw_views(step, b, h, w, microbatch):
             return device_augment.step_views(scfg.aug_seed, step, b, h, w,
@@ -256,7 +274,10 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
         cls_labels = torch.cat([part["label"], part["label"]])
         cls_loss = cross_entropy(logits, cls_labels)
         total = byol_loss + cls_loss
-        total.backward()
+        if scfg.check_numerics:
+            backward_checked(total, state.step)
+        else:
+            total.backward()
         with torch.no_grad():
             top1, top5 = topk_accuracy(logits, cls_labels)
         metrics = {"loss_mean": total.detach(),
@@ -318,43 +339,56 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
                 "view2": torch.cat([v[1] for v in views]),
                 "label": torch.cat(parts["label"])}
 
-    def update(state: TrainState, lr: float, tau: float) -> torch.Tensor:
+    def update(state: TrainState, lr: float, tau: float
+               ) -> Tuple[torch.Tensor, Callable[[], torch.Tensor]]:
+        """The update and the EMA tick, in place; -> (the trust vector,
+        the norm of the update applied: ``lr |m'|`` of the fused kernels'
+        ``-lr m'``, the chain's own update's otherwise)."""
         nonlocal layout
-        if state.zero1 is not None:
-            return state.zero1.update(
-                state.params, state.grads, state.momentum, state.target,
-                lr=lr, tau=tau, momentum_decay=MOMENTUM_DECAY,
-                trust_coefficient=tx.trust_coefficient, eps=tx.eps,
-                ema_pre=ema_pre)
+        z = state.zero1
+        if z is not None:
+            if scfg.fused_update:
+                trust = z.update(
+                    state.params, state.grads, state.momentum, state.target,
+                    lr=lr, tau=tau, momentum_decay=MOMENTUM_DECAY,
+                    trust_coefficient=tx.trust_coefficient, eps=tx.eps,
+                    ema_pre=ema_pre)
+                return trust, lambda: abs(lr) * z.global_sq_norm(
+                    state.momentum).sqrt()
+            trust, u = z.update_chain(
+                tx, state.params, state.grads, state.opt, state.opt_counts,
+                state.target, lr=lr, tau=tau, ema_pre=ema_pre)
+            return trust, lambda: z.global_sq_norm(u).sqrt()
         if grouped:
             collectives.grad_allreduce_mean(state.grads)
+        if layout is None or layout.seg is not state.seg:
+            layout = fused_lib.FusedLayout.build(
+                state.seg, tx.weight_decay, state.params.device)
         if scfg.fused_update:
-            if layout is None or layout.seg is not state.seg:
-                layout = fused_lib.FusedLayout.build(
-                    state.seg, tx.weight_decay, state.params.device)
-            return fused_lib.fused_lars_ema_update_buffers(
+            trust = fused_lib.fused_lars_ema_update_buffers(
                 state.params, state.grads, state.momentum, state.target,
                 layout, lr=lr, tau=tau, momentum_decay=MOMENTUM_DECAY,
                 trust_coefficient=tx.trust_coefficient, eps=tx.eps,
                 ema_pre=ema_pre)
+            return trust, lambda: abs(lr) * health_lib.global_norm(
+                state.momentum)
         if ema_pre:
             state.target.mul_(tau).add_(state.params, alpha=1.0 - tau)
-        trust = tx.update(state.leaves(state.params),
-                          state.leaves(state.grads),
-                          state.leaves(state.momentum), lr=lr,
-                          adapted=state.seg.adapted)
+        u, trust = tx.update(state.params, state.grads, state.opt,
+                             state.opt_counts, lr=lr, layout=layout)
+        state.params.add_(u)
         if not ema_pre:
             state.target.mul_(tau).add_(state.params, alpha=1.0 - tau)
-        return trust
+        return trust, lambda: health_lib.global_norm(u)
 
     def train_step(state: TrainState, batch) -> Metrics:
         if scfg.polyak_ema > 0.0 and state.polyak is None:
             raise ValueError("polyak_ema > 0 needs a train state made with "
                              "polyak_ema > 0 (it has no Polyak buffer)")
-        if state.zero1 is not None and not scfg.fused_update:
-            raise ValueError("a ZeRO-1 train state needs fused_update=True: "
-                             "the sharded update is K1a split + K1b on the "
-                             "rank's range")
+        if state.optimizer != tx.name:
+            raise ValueError(f"the train state holds the state of optimizer "
+                             f"{state.optimizer!r}, and the step runs "
+                             f"{tx.name!r}")
         state.grads.zero_()
         if scfg.accum_steps == 1:
             metrics = forward_backward(state, batch, 0)
@@ -374,7 +408,7 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
             lr = lr_schedule(state.count)
             tau = cosine_ema_decay(state.ema_step, scfg.total_train_steps,
                                    scfg.base_decay)
-            trust = update(state, lr, tau)
+            trust, update_norm = update(state, lr, tau)
             if scfg.polyak_ema > 0.0:
                 d = scfg.polyak_ema
                 state.polyak.mul_(d).add_(state.params, alpha=1.0 - d)
@@ -382,26 +416,49 @@ def make_train_step(tx: LarsMomentum, scfg: StepConfig,
                 metrics = dict(metrics)
                 collapse = (metrics.pop("_collapse_feature_std"),
                             metrics.pop("_collapse_cosine_mean"))
-                # the update both paths apply is -lr * m'
-                grad_stats, m_norm = None, health_lib.global_norm(
-                    state.momentum)
-                if state.zero1 is not None:
-                    # the mean gradient and the momentum live on the
-                    # ranks' ranges
-                    grad_stats = state.zero1.grad_stats()
-                    m_norm = state.zero1.global_sq_norm(
-                        state.momentum).sqrt()
+                # under ZeRO-1 the mean gradient and the update live on
+                # the ranks' ranges
+                grad_stats = (state.zero1.grad_stats()
+                              if state.zero1 is not None else None)
                 metrics["health"] = health_lib.health_stats(
                     grads=state.grads, params=state.params,
                     target_params=state.target, loss=metrics["loss_mean"],
                     collapse=collapse, trust_ratios=trust,
-                    update_norm=abs(lr) * m_norm, grad_stats=grad_stats)
+                    update_norm=update_norm(), grad_stats=grad_stats)
+        if scfg.check_numerics:
+            check_finite(state.step, loss=metrics["loss_mean"],
+                         params=state.params)
         state.count += 1
         state.step += 1
         state.ema_step += 1
         return metrics
 
     return train_step
+
+
+def backward_checked(loss: torch.Tensor, step: int) -> None:
+    """``loss.backward()`` under ``torch.autograd.detect_anomaly(check_nan=
+    True)`` (``--check-numerics``, the port's ``jax_debug_nans``): a
+    backward function that returns a non-finite value raises
+    FloatingPointError naming the step."""
+    with torch.autograd.detect_anomaly(check_nan=True):
+        try:
+            loss.backward()
+        except RuntimeError as e:
+            if "nan" not in str(e).lower():
+                raise
+            raise FloatingPointError(
+                f"--check-numerics: step {step}: {e}") from e
+
+
+def check_finite(step: int, **tensors: torch.Tensor) -> None:
+    """Raise FloatingPointError naming the step and the tensors with a
+    non-finite value (one readback of a few flags)."""
+    flags = torch.stack([torch.isfinite(t).all() for t in tensors.values()])
+    bad = [name for name, ok in zip(tensors, flags.tolist()) if not ok]
+    if bad:
+        raise FloatingPointError(f"--check-numerics: step {step}: "
+                                 f"non-finite {', '.join(bad)}")
 
 
 def make_eval_step(scfg: StepConfig, policy: Policy = FP32

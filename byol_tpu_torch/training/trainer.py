@@ -290,7 +290,9 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
     if verbose:
         print(f"model: {cfg.model.arch}, {state.seg.num_segments} parameter "
               f"leaves, {sum(state.seg.sizes) / 1e6:.2f}M params, "
-              f"fused_update={cfg.optim.fused_update}, "
+              f"optimizer={state.optimizer}"
+              + (f" (clip {cfg.optim.clip})" if cfg.optim.clip else "")
+              + f", fused_update={cfg.optim.fused_update}, "
               f"half={cfg.device.half}, on {device}", flush=True)
         if rcfg.accum_steps > 1:
             # every count above the step (state.step, steps per epoch, the

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive byol_tpu_torch's serving (in process and over the wire),
-training, input, accumulation, observability, linear-eval and
-data-parallel paths once on one CUDA card, and check them.
+training, input, accumulation, observability, linear-eval, data-parallel
+and optimizer-registry paths once on one CUDA card, and check them.
 
     python3 chip_smoke.py            # from the repository root; one card
 
@@ -110,7 +110,8 @@ Phases (any failure raises, and the script exits nonzero):
    once an epoch.  Then 4 timed steps of each backend (tf and native at
    2 and 6 workers) beside the step placement's K2 path, fed by
    ``prefetch_to_device`` as the trainer is, in turns, and a
-   torch.profiler breakdown of 3 steps of each (images/s, device-busy
+   torch.profiler breakdown of 3 more steps of each in its second turn
+   (images/s, device-busy
    share, starved steps, H2D MiB per step); then ``--task image_folder``
    on a tree of 2 classes x 64 JPEGs at 256 px written with PIL (2 steps
    under ``native``, and 2 under ``tf`` where the library has libjpeg;
@@ -187,13 +188,34 @@ Phases (any failure raises, and the script exits nonzero):
    header's ``sharding_plan`` reads world 1 and ZeRO-1 on, and its
    checkpoint restores bitwise into a one-card ``--zero1 off`` state,
    which then takes a step;
-12. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
+12. optim — the optimizer registry on the unfused path: the ddp phase's
+   config with ``--fused-update off`` (ResNet-50, 224 px, batch 64, bf16,
+   K2 in the step), the net built once from the seed; each of the 14
+   chains (rmsprop, adam, adadelta, sgd, momentum, lamb, lbfgs, bare and
+   as ``lars_<base>``) and sgd and lars_lamb at ``--clip 0.01``, from the
+   same state, takes 3 steps on the same batches (no warmup; the adaptive
+   bases at lr 1e-3, the rest at the recipe's 0.2), every launch counter
+   set to 0
+   before the first chain and read after the last: losses finite, K2 one
+   launch a step, the split K1a's two entries one a step per LARS or LAMB
+   norm (lars_lamb two); busy ms of a profiled step and peak memory per
+   chain.  Then one update of lars_adam, lamb and lbfgs at the ResNet-50
+   layout from a seeded mid-run state on the card against the same chain
+   on CPU copies (rtol 1e-5), and the LAMB-layout epilogue against its
+   plain version; lars_adam and lbfgs at world 1 over NCCL with ``--zero1
+   on --flat-resident on`` against off, states bit for bit; ``torchrun
+   --nproc_per_node 1 ... --optimizer lamb --zero1 on --flat-resident
+   on`` exits 0 and its checkpoint restores bitwise into a one-card
+   ``--zero1 off`` lamb state, which then takes a step;
+13. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
    ``{"observe": ...}``, ``{"serving_graph_vs_eager": ..., "wire": ...,
-   "linear_eval": ...}``, ``{"ddp": ...}`` and ``{"kernels": [...]}``
-   lines (launches on this slice's main path — K1a, K1b, K2 and the split
-   K1a's entries in the ddp phase's runs over NCCL; K3's over the wire,
-   from graph replays, where it last ran — and per path), then, last, the
-   ``{"ok": true, "device": ...}`` line.
+   "linear_eval": ...}``, ``{"ddp": ...}``, ``{"optim": ...}`` and
+   ``{"kernels": [...]}`` lines (launches on this slice's main path — the
+   split K1a's entries in the optim phase's chains; K1a, K1b and K2 in
+   the ddp phase's runs over NCCL; K3's over the wire, from graph
+   replays, where it last ran — and per path; the library yardstick of
+   K1a and its split is ``torch._foreach_norm`` over the leaves of p and
+   g), then, last, the ``{"ok": true, "device": ...}`` line.
 """
 import json
 import math
@@ -770,9 +792,16 @@ def check_fused_update(card):
                 bufs[0], g, bufs[1], bufs[2], scale, layout, **apply_kw)),
             max_abs_err=err_b, ok=ok_b),
     }
+    # the nearest library call: torch's multi-tensor norm over the leaves
+    # of p and of g (K1a's second norm is of g + wd p)
+    norm_leaves = fu.unpack_flat(p, seg, shapes) + fu.unpack_flat(g, seg,
+                                                                  shapes)
+    library = {"segment_norms": _device_ms(
+        lambda: torch._foreach_norm(norm_leaves)), "fused_apply": None}
     for name, row in rows.items():
         row.update(bound_ms=n_bytes[name] / HBM_BYTES_PER_S * 1e3,
-                   bound_by="bytes", library_ms=None, elements=seg.total)
+                   bound_by="bytes", library_ms=library[name],
+                   elements=seg.total)
         print(f"{name} {row} [{card}]", flush=True)
     if not (ok_a and ok_b):
         raise AssertionError(
@@ -795,6 +824,7 @@ def run_training(card):
     from byol_tpu_torch.data import device_augment as da
     from byol_tpu_torch.data.loader import get_loader
     from byol_tpu_torch.ops import fused_augment as fg
+    from byol_tpu_torch.optim.factory import LarsMomentum
     from byol_tpu_torch.optim.schedules import cosine_ema_decay
     from byol_tpu_torch.training.build import build_tx, step_config
     from byol_tpu_torch.training.steps import make_train_step
@@ -863,8 +893,9 @@ def run_training(card):
     ema_ok = torch.allclose(state.target, tau * t0 + (1 - tau) *
                             state.params, **K1_TOL)
     with torch.no_grad():
-        tx.update(state.leaves(p0), state.leaves(state.grads),
-                  state.leaves(m0), lr=lr, adapted=state.seg.adapted)
+        LarsMomentum(weight_decay=tx.weight_decay).update(
+            state.leaves(p0), state.leaves(state.grads), state.leaves(m0),
+            lr=lr, adapted=state.seg.adapted)
         t0.mul_(tau).add_(p0, alpha=1 - tau)
     errs = {name: (got - want).abs().max().item()
             for name, got, want in (("p", state.params, p0),
@@ -1296,8 +1327,10 @@ def _input_run(name, extra, model_dir, samples=INPUT_SAMPLES,
 def _input_arms(card, model_dir):
     """Steps of ResNet-50 at batch 64 with each backend making the views
     (through prefetch_to_device, the trainer's feed) beside the step
-    placement's K2 path: INPUT_TIMED timed steps per arm, in turns, then a
-    torch.profiler breakdown of 3 steps of each."""
+    placement's K2 path: INPUT_TIMED timed steps per arm, in turns, and a
+    torch.profiler breakdown of 3 more steps of each in its second turn
+    (on the pipeline that turn started: a spawned worker pool takes ~14
+    s to fill)."""
     import dataclasses
 
     import torch
@@ -1344,9 +1377,12 @@ def _input_arms(card, model_dir):
                 epoch += 1
         feeds[name] = [step, endless, cfg.device.workers_per_replica]
 
-    def timed(name):
+    profiles = {}
+
+    def timed(name, profile):
         """-> (ms per step, starved steps, waited s, h2d bytes per step)
-        over the timed steps, after 2 that fill the pipeline."""
+        over the timed steps, after 2 that fill the pipeline; with
+        ``profile`` 3 more steps under the profiler."""
         step, endless, _ = feeds[name]
         meter = InputPipelineMeter()
         batches = prefetch_to_device(endless(), cuda, meter=meter)
@@ -1360,6 +1396,11 @@ def _input_arms(card, model_dir):
                 step(state, next(batches))
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3 / INPUT_TIMED
+            if profile:
+                profiles[name] = _device_profile(
+                    lambda: step(state, next(batches)), 3, card,
+                    f"input arm {name}, resnet50 train step at batch 64, "
+                    f"per step", top=0)
             return (ms, meter.starved_steps - starved,
                     meter.wait_seconds - waited, meter.h2d_bytes_per_step())
         finally:
@@ -1367,19 +1408,11 @@ def _input_arms(card, model_dir):
 
     turns = {name: [] for name in arms}
     for name in list(arms) + list(arms)[::-1]:
-        turns[name].append(timed(name))
+        turns[name].append(timed(name, profile=bool(turns[name])))
     rows = {}
     for name in arms:
-        step, endless, workers = feeds[name]
-        batches = prefetch_to_device(endless(), cuda)
-        try:
-            for _ in range(2):
-                step(state, next(batches))
-            prof = _device_profile(lambda: step(state, next(batches)), 3,
-                                   card, f"input arm {name}, resnet50 train "
-                                   f"step at batch 64, per step", top=0)
-        finally:
-            batches.close()
+        workers = feeds[name][2]
+        prof = profiles[name]
         ms = [t[0] for t in turns[name]]
         rows[name] = dict(
             ms=ms, img_s=64e3 / min(ms), busy_ms=prof["busy_ms"],
@@ -2786,11 +2819,17 @@ def check_range_kernels(card):
         lay, sl, _ = parts[0]
         pr, gr = p[sl], g[sl]
         bufs = [x[sl].clone() for x in (p, m, t)]
+        # the nearest library call: torch's multi-tensor norm over the
+        # range's piece of each segment, of p and of g
+        bounds = lay.seg_row_start.tolist()
+        pieces = [x.view(-1, fu.LANES)[a:b].reshape(-1) for x in (pr, gr)
+                  for a, b in zip(bounds[:-1], bounds[1:])]
         timed[world] = {
             "segment_sums": (
                 _device_ms(lambda: fu.segment_sums(pr, gr, lay)),
                 _device_ms(lambda: fu.segment_sums_reference(pr, gr, lay)),
-                (2 * 4 * lay.total + 16 * seg.num_segments)),
+                (2 * 4 * lay.total + 16 * seg.num_segments),
+                _device_ms(lambda: torch._foreach_norm(pieces))),
             "fused_apply": (
                 _device_ms(lambda: fu.fused_apply(
                     bufs[0], gr, bufs[1], bufs[2], scale, lay, **kw)),
@@ -2806,7 +2845,7 @@ def check_range_kernels(card):
           f"{err} [{card}]", flush=True)
     for world, rows in timed.items():
         for name in ("segment_sums", "fused_apply"):
-            ms, plain, nbytes = rows[name]
+            ms, plain, nbytes = rows[name][:3]
             print(f"ddp: {name} on rank 0's range of world {world} "
                   f"({rows['rows']} rows): {ms:.4f} ms graph, plain "
                   f"{plain:.4f}, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
@@ -2820,15 +2859,15 @@ def check_range_kernels(card):
                              f"plain versions or the whole buffer: {err}, "
                              f"world 1 bitwise {bitwise1}")
 
-    def entry(ms, plain, nbytes, max_err, **more):
+    def entry(ms, plain, nbytes, max_err, library_ms=None, **more):
         return dict(ms=ms, plain_ms=plain,
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                    bound_by="bytes", library_ms=None, max_abs_err=max_err,
-                    ok=ok, **more)
-    ms, plain, nbytes = timed[2]["segment_sums"]
+                    bound_by="bytes", library_ms=library_ms,
+                    max_abs_err=max_err, ok=ok, **more)
+    ms, plain, nbytes, library_ms = timed[2]["segment_sums"]
     return {
         "segment_sums": entry(
-            ms, plain, nbytes, err["sums"],
+            ms, plain, nbytes, err["sums"], library_ms=library_ms,
             max_rel_err=err["sums_rel"], shape=f"rank 0 of 2, "
             f"{timed[2]['rows']} rows",
             world4_ms=timed[4]["segment_sums"][0],
@@ -2932,11 +2971,12 @@ def _synced_bn_check(card):
     return errs
 
 
-def _torchrun(card, root, state_like):
+def _torchrun(card, root, state_like, argv=None, what="ddp"):
     """The launcher: ``torch.distributed.run --standalone --nproc_per_node
-    1 -m byol_tpu_torch ... --zero1 on --flat-resident on``; its run
-    header's plan; its checkpoint restored into a one-card ``--zero1 off``
-    state, which then takes a step.  -> row."""
+    1 -m byol_tpu_torch ... --zero1 on --flat-resident on`` (``argv``,
+    default the ddp phase's); its run header's plan; its checkpoint
+    restored into a one-card ``--zero1 off`` state, which then takes a
+    step.  -> row."""
     import glob
 
     import torch
@@ -2946,9 +2986,10 @@ def _torchrun(card, root, state_like):
                                                load_canonical)
     model_dir = os.path.join(root, "models")
     log_dir = os.path.join(root, "logs")
+    argv = DDP_ARGV + ZERO1_FLAGS if argv is None else argv
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "1", "-m", "byol_tpu_torch", *DDP_ARGV,
-           *ZERO1_FLAGS, "--model-dir", model_dir, "--log-dir", log_dir,
+           "--nproc_per_node", "1", "-m", "byol_tpu_torch", *argv,
+           "--model-dir", model_dir, "--log-dir", log_dir,
            "--grapher", "jsonl", "--workers-per-replica", "0"]
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here + os.pathsep
@@ -2968,9 +3009,9 @@ def _torchrun(card, root, state_like):
     wall = time.perf_counter() - t0
     tail = out.strip().splitlines()[-12:]
     for line in tail:
-        print(f"ddp: torchrun | {line[:200]}", flush=True)
+        print(f"{what}: torchrun | {line[:200]}", flush=True)
     if proc.returncode != 0:
-        raise AssertionError(f"ddp: torchrun exited {proc.returncode}")
+        raise AssertionError(f"{what}: torchrun exited {proc.returncode}")
     (log,) = glob.glob(os.path.join(log_dir, "*", "run.jsonl"))
     header = next(read_events(log))
     plan = header["sharding_plan"]
@@ -2982,7 +3023,7 @@ def _torchrun(card, root, state_like):
     load_canonical(state, tree)
     restored = _trees_bitwise(canonical_state(state), tree)
     loss = float(step(state, _ddp_batches(1)[0])["loss_mean"])
-    print(f"ddp: torchrun --nproc_per_node 1 rc 0 in {wall:.1f} s; run "
+    print(f"{what}: torchrun --nproc_per_node 1 rc 0 in {wall:.1f} s; run "
           f"header sharding_plan {plan}; its checkpoint (epoch {epoch}, "
           f"step {tree['step']}) restored into a one-card --zero1 off state "
           f"bitwise {restored}, which then took step {state.step} with loss "
@@ -2990,7 +3031,7 @@ def _torchrun(card, root, state_like):
     if not (plan["zero1"] == "on" and plan["mesh_shape"]["data"] == 1
             and plan["flat_resident"] == "on" and restored
             and math.isfinite(loss) and tree["step"] == 8):
-        raise AssertionError(f"ddp: torchrun run {plan}, restored "
+        raise AssertionError(f"{what}: torchrun run {plan}, restored "
                              f"{restored}, step {tree['step']}, loss {loss}")
     return {"wall_s": wall, "sharding_plan": plan, "restored_bitwise":
             restored, "checkpoint_step": tree["step"]}
@@ -3117,6 +3158,280 @@ def run_ddp(card):
     return counts, rows, row
 
 
+# the optim phase: every chain of the optimizer registry on the unfused
+# path (the ddp phase's config with --fused-update off)
+OPTIM_ARGV = DDP_ARGV[:DDP_ARGV.index("--fused-update")] + [
+    "--fused-update", "off", "--warmup", "0"]
+OPTIM_STEPS = 3
+OPTIM_CLIP = 0.01
+# the adaptive bases normalise each element: the recipe's lr 0.2 would
+# move every weight by ~0.2 a step, so they run at 1e-3
+OPTIM_ADAPTIVE_LR = 1e-3
+
+
+def _optim_chains():
+    from byol_tpu_torch.optim.transforms import BASES
+    names = list(BASES) + ["lars_" + b for b in BASES]
+    return [(n, 0.0) for n in names] + [("sgd", OPTIM_CLIP),
+                                       ("lars_lamb", OPTIM_CLIP)]
+
+
+def _optim_argv(name, clip):
+    lr = (OPTIM_ADAPTIVE_LR if name.split("_")[-1] in
+          ("rmsprop", "adam", "lamb") else None)
+    return OPTIM_ARGV + ["--optimizer", name, "--clip", str(clip)] + (
+        ["--lr", str(lr)] if lr is not None else [])
+
+
+def _optim_rcfg(argv):
+    import dataclasses
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.core.config import resolve
+    cfg = config_from_args(build_parser().parse_args(argv))
+    cfg = cfg.replace(device=dataclasses.replace(cfg.device,
+                                                 num_replicas=1))
+    size = cfg.task.image_size_override
+    return cfg, resolve(cfg, num_train_samples=512, num_test_samples=128,
+                        output_size=10, input_shape=(size, size, 3))
+
+
+def _optim_counters():
+    """(two_view, segment_sums, segment_epilogue) launches."""
+    c = _ddp_counters()
+    return c[2], c[3], c[4]
+
+
+def _optim_chain_runs(card, batches):
+    """Each chain from one seeded ResNet-50 state, 3 steps on the same
+    batches, every launch counter set to 0 before the first chain and
+    read after the last.  -> (rows, counts)."""
+    import torch
+    from byol_tpu_torch.core.precision import get_policy
+    from byol_tpu_torch.training.build import (build_net, build_tx,
+                                               step_config)
+    from byol_tpu_torch.training.state import create_train_state
+    from byol_tpu_torch.training.steps import make_train_step
+    cfg, rcfg = _optim_rcfg(_optim_argv("lars_momentum", 0.0))
+    net = build_net(rcfg).to("cuda")          # built once, seeded
+    init = create_train_state(net, ema_init_mode=cfg.parity.ema_init_mode)
+    p0, t0 = init.params.clone(), init.target.clone()
+    stats0 = {k: v.clone() for k, v in init.batch_stats().items()}
+    del init
+    policy = get_policy(cfg.device.half)
+    rows = {}
+    _zero_ddp_counters()
+    for name, clip in _optim_chains():
+        cfg, rcfg = _optim_rcfg(_optim_argv(name, clip))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = create_train_state(net, optimizer=name,
+                                   ema_init_mode=cfg.parity.ema_init_mode)
+        with torch.no_grad():
+            state.params.copy_(p0)
+            state.target.copy_(t0)
+            for k, v in state.batch_stats().items():
+                v.copy_(stats0[k])
+        tx, schedule = build_tx(rcfg)
+        step = make_train_step(tx, step_config(rcfg), schedule, policy)
+        before = _optim_counters()
+        losses = [float(step(state, batches[0])["loss_mean"])]
+        prof = _device_profile(lambda: losses.append(float(step(
+            state, batches[1])["loss_mean"])), 1, card,
+            f"optim {name} clip {clip}, resnet50 batch 64 step", top=0)
+        losses.append(float(step(state, batches[2])["loss_mean"]))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = tuple(a - b for a, b in zip(_optim_counters(), before))
+        norms = int(tx.lars) + int(tx.base == "lamb")
+        want = (OPTIM_STEPS, norms * OPTIM_STEPS, norms * OPTIM_STEPS)
+        key = name + (f" clip {clip}" if clip else "")
+        rows[key] = {"busy_ms": prof["busy_ms"],
+                     "wall_ms": prof["wall_ms"],
+                     "peak_gib": peak / 2**30, "losses": losses,
+                     "launches": launches,
+                     "opt_buffers": len(state.opt)}
+        print(f"optim: {key}: losses {losses}, busy {prof['busy_ms']:.3f} "
+              f"ms a step, peak {peak / 2**30:.2f} GiB, {len(state.opt)} "
+              f"state buffers, launches (two_view, segment_sums, "
+              f"segment_epilogue) = {launches} [{card}]", flush=True)
+        if launches != want or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"optim: {key}: launches {launches}, want "
+                                 f"{want}; losses {losses}")
+        del state, step
+        torch.cuda.empty_cache()
+    return rows, _optim_counters()
+
+
+def _optim_update_checks(card):
+    """One update of lars_adam, lamb and lbfgs at the ResNet-50 layout
+    from seeded gradients and a seeded mid-run state, on the card (the
+    kernels) and on CPU copies (the plain versions): rtol 1e-5.  Then the
+    LAMB-layout epilogue against its plain version.  -> row."""
+    import torch
+    from byol_tpu_torch.ops import fused_update as fu
+    from byol_tpu_torch.optim.factory import build_optimizer
+    seg, _ = _rn50_segment_map()
+    real = torch.zeros(seg.total, dtype=torch.bool, device="cuda")
+    for start, size in zip(seg.starts, seg.sizes):
+        real[start:start + size] = True
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def draw(scale, shape=(seg.total,)):
+        return torch.randn(shape, generator=gen, device="cuda") * scale \
+            * real
+
+    p, g = draw(0.05), draw(1e-3)
+    errs, ok = {}, True
+    for name in ("lars_adam", "lamb", "lbfgs"):
+        chain, _ = build_optimizer(name, base_lr=1e-3, global_batch_size=64,
+                                   weight_decay=1e-6, total_units=10,
+                                   warmup_units=0)
+        opt, counts = chain.init(p)
+        # a state in mid-run: every buffer filled, the counts past the
+        # memory's length
+        for k, buf in opt.items():
+            if k == "weights_memory":
+                buf.copy_(torch.rand(10, generator=gen, device="cuda") + 1)
+            elif k == "nu":
+                buf.copy_(draw(1e-3).square())
+            else:
+                buf.copy_(draw(1e-3, buf.shape))
+        counts = {k: 13 for k in counts}
+        host = {k: v.to("cpu", copy=True) for k, v in opt.items()}
+        host_counts = dict(counts)
+        dev_layout = fu.FusedLayout.build(seg, 1e-6, "cuda")
+        cpu_layout = fu.FusedLayout.build(seg, 1e-6, "cpu")
+        u, trust = chain.update(p, g, opt, counts, lr=1e-3,
+                                layout=dev_layout)
+        hu, htrust = chain.update(p.to("cpu", copy=True),
+                                  g.to("cpu", copy=True), host, host_counts,
+                                  lr=1e-3, layout=cpu_layout)
+        torch.cuda.synchronize()
+        pairs = [("u", u, hu), ("trust", trust, htrust)] + [
+            (k, opt[k], host[k]) for k in opt]
+        err = max(((a.cpu() - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)).item() for _, a, b in pairs)
+        good = counts == host_counts and all(
+            torch.allclose(a.cpu(), b, rtol=1e-5,
+                           atol=1e-7 * b.abs().max().item())
+            for _, a, b in pairs)
+        errs[name] = err
+        ok = ok and good
+        print(f"optim: one {name} update at the ResNet-50 layout, kernels vs "
+              f"the plain versions on CPU copies: max abs err over max abs "
+              f"{err:.3e} ok={good} [{card}]", flush=True)
+    # LAMB's trust ratio through the split K1a on its layout
+    lamb = fu.FusedLayout.build(fu.SegmentMap(
+        sizes=seg.sizes, padded=seg.padded, starts=seg.starts,
+        adapted=(True,) * seg.num_segments), 0.0, "cuda")
+    sums = fu.segment_sums(p, g, lamb)
+    scale, norms = fu.segment_epilogue(sums, lamb, 1.0, 0.0)
+    ref_scale, ref_norms = fu.segment_epilogue_reference(sums, lamb, 1.0,
+                                                          0.0)
+    epi_err = max((scale - ref_scale).abs().max().item(),
+                  (norms - ref_norms).abs().max().item())
+    epi_ok = (torch.allclose(scale, ref_scale, **K1_TOL)
+              and torch.allclose(norms, ref_norms, **K1_TOL))
+    print(f"optim: segment_epilogue on the LAMB layout ({seg.num_segments} "
+          f"segments, every one adapted, trust coefficient 1) vs its plain "
+          f"version: max abs err {epi_err:.3e} ok={epi_ok} [{card}]",
+          flush=True)
+    if not (ok and epi_ok):
+        raise AssertionError(f"optim: the chains' kernels disagree with "
+                             f"their plain versions: {errs}, LAMB epilogue "
+                             f"{epi_err}")
+    return {"update_max_rel_err": errs, "lamb_epilogue_max_abs_err":
+            epi_err}
+
+
+def _optim_zero1(card, root, batches):
+    """lars_adam and lbfgs at world 1 over NCCL (a FileStore rendezvous),
+    --zero1 on against off, 3 steps each on the same batches under
+    deterministic cuDNN: the states bit for bit.  -> row."""
+    import torch.distributed as dist
+    from byol_tpu_torch.parallel import mesh
+    from byol_tpu_torch.parallel.compile_plan import plan_from_cfg
+    from byol_tpu_torch.training.build import setup_training
+    from byol_tpu_torch.training.state import canonical_state
+    mesh.initialize_distributed(
+        "cuda", store=dist.FileStore(os.path.join(root, "store"), 1),
+        rank=0, world_size=1)
+    if not (mesh.is_initialized() and dist.get_backend() == "nccl"):
+        raise AssertionError("optim: no NCCL process group")
+    out = {}
+    try:
+        for name in ("lars_adam", "lbfgs"):
+            trees = {}
+            for zero1 in (False, True):
+                cfg, rcfg = _optim_rcfg(_optim_argv(name, 0.0) + (
+                    ZERO1_FLAGS if zero1 else []))
+                _, state, step, _, _ = setup_training(
+                    rcfg, "cuda", plan=plan_from_cfg(cfg, 1))
+                for b in batches:
+                    step(state, b)
+                trees[zero1] = canonical_state(state)
+                del state, step
+            diff = _differing(trees[False], trees[True])
+            out[name] = not diff
+            print(f"optim: {name} at world 1 over NCCL, --zero1 on (with "
+                  f"--flat-resident on) vs off, {len(batches)} steps: states "
+                  f"bitwise {not diff}"
+                  + (f"; differing {diff[:6]}" if diff else "")
+                  + f" [{card}]", flush=True)
+    finally:
+        mesh.shutdown()
+    if not all(out.values()):
+        raise AssertionError(f"optim: ZeRO-1 on != off: {out}")
+    return out
+
+
+def run_optim(card):
+    """The optimizer registry on the card: every chain's 3 steps from one
+    seeded state (the main path of this phase, counted), the chains'
+    kernels against their plain versions, ZeRO-1 on against off at world
+    1 over NCCL, and torchrun with lamb under ZeRO-1 whose checkpoint
+    restores into a one-card lamb state.  -> (counts, row)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from byol_tpu_torch.training.build import setup_training
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    root = tempfile.mkdtemp(prefix="chip_smoke_optim_")
+    parts, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        parts[name] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+    try:
+        batches = _ddp_batches(OPTIM_STEPS)
+        rows, counts = _optim_chain_runs(card, batches)
+        print(f"optim: launches over the {len(rows)} chains (two_view, "
+              f"segment_sums, segment_epilogue) = {counts}", flush=True)
+        lap("chains")
+        checks = _optim_update_checks(card)
+        lap("update checks")
+        zero1 = _optim_zero1(card, root, batches)
+        lap("zero1")
+        lamb = _optim_argv("lamb", 0.0)
+        _, rcfg = _optim_rcfg(lamb)
+        _, state, step, _, _ = setup_training(rcfg, "cuda")
+        torchrun = _torchrun(card, os.path.join(root, "torchrun"),
+                             (state, step), argv=lamb + ZERO1_FLAGS,
+                             what="optim")
+        del state, step
+        lap("torchrun")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"optim: seconds by part {parts}", flush=True)
+    return counts, {"chains": rows, "checks": checks,
+                    "zero1_bitwise": zero1, "torchrun_lamb": torchrun,
+                    "seconds": parts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3166,6 +3481,7 @@ def main() -> int:
         "observe", run_observe, card, accum_row["microbatch"], accum_row)
     le_counts, le_row = phase("linear_eval", run_linear_eval, card)
     ddp_counts, ddp_rows, ddp_row = phase("ddp", run_ddp, card)
+    optim_counts, optim_row = phase("optim", run_optim, card)
     print(f"phases, s: {phases}; total since start "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -3227,35 +3543,41 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "elements": row["elements"],
+            "library_ms": row["library_ms"], "elements": row["elements"],
             "ok": row["ok"]})
     k2 = k2_rows[0]                      # the training shape
     kernels.append({
         "name": "two_view", "route": "cuda",
         "source": "byol_tpu_torch/ops/csrc/fused_augment.cu",
         "replaces": "byol_tpu/ops/fused_augment.py:179",
-        "launches": ddp[2], "launches_by_path": by_path(3, 2),
+        "launches": ddp[2],
+        "launches_by_path": dict(by_path(3, 2), optim=optim_counts[0]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None, "einsum_crop_ms": k2["einsum_crop_ms"],
         "shape": [64, 224, 224, 3],
         "ok": all(r["ok"] for r in k2_rows)})
-    # K1a split: its own entries, which only the ZeRO-1 update calls
-    for name, j in (("segment_sums", 3), ("segment_epilogue", 4)):
+    # K1a split: its own entries, which the ZeRO-1 fused update and every
+    # LARS and LAMB chain call; this slice's main path is the optim
+    # phase's chains
+    for name, j, i in (("segment_sums", 3, 1), ("segment_epilogue", 4, 2)):
         row = ddp_rows[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "byol_tpu_torch/ops/csrc/fused_update.cu",
             "replaces": "byol_tpu/ops/fused_update.py:198 (the ZeRO-1 "
                         "call at :417)",
-            "launches": ddp[j], "launches_by_path": ddp_paths(j), **row})
+            "launches": optim_counts[i],
+            "launches_by_path": dict(ddp_paths(j), optim=optim_counts[i]),
+            **row})
     print(json.dumps({"input_arms": input_rows}), flush=True)
     print(json.dumps({"accum": accum_row}), flush=True)
     print(json.dumps({"observe": observe_row}), flush=True)
     print(json.dumps({"serving_graph_vs_eager": versus, "wire": wire_row,
                       "linear_eval": le_row}), flush=True)
     print(json.dumps({"ddp": ddp_row}), flush=True)
+    print(json.dumps({"optim": optim_row}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

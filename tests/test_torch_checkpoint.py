@@ -433,3 +433,74 @@ def test_config_json_is_strict_and_sanitize_matches_jax():
                "c": np.array([NAN, 1.0]), "d": "NaN", "e": 3}
     assert sanitize(payload) == jax_sanitize(payload)
     assert json.dumps(sanitize(payload), allow_nan=False)
+
+
+# --------------------------------------------------------------------------
+# the optimizer registry's state in the canonical tree
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for the test, restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "lbfgs"])
+def test_optimizer_state_resumes_exactly(optimizer, tmp_path, one_thread):
+    """Two steps, the canonical tree through the store, a fresh state and
+    the third step: bit for bit the state of three uninterrupted steps,
+    the optimizer's buffers (lbfgs's memories as (10, *shape) per name)
+    and counts included."""
+    from tests.test_torch_accum import _batches
+    from tests.test_torch_ddp_step import assert_trees_equal
+    from tests.torch_ranks import seeded_tree, train
+    spec = dict(canonical=seeded_tree(optimizer), optimizer=optimizer,
+                base_lr=0.01, batches=_batches("views", 3, 5, 8),
+                scfg=dict(normalize_inputs=True, norm_mode="reference"))
+    whole = train(spec)["state"]
+    first = train(dict(spec, batches=spec["batches"][:2]))["state"]
+    store = torch_ckpt.CheckpointStore(str(tmp_path / optimizer))
+    store.save(0, first)
+    restored, _ = store.restore()
+    store.close()
+    assert restored["optimizer"] == optimizer
+    assert restored["opt_counts"] == ({"count": 2})
+    resumed = train(dict(spec, canonical=restored,
+                         batches=spec["batches"][2:]))["state"]
+    assert_trees_equal(resumed, whole)
+    assert (resumed["step"], resumed["count"]) == (3, 3)
+    if optimizer == "lbfgs":
+        memory = whole["diff_params_memory"]["backbone.stem_conv.weight"]
+        assert memory.shape == (10,) + tuple(
+            whole["params"]["backbone.stem_conv.weight"].shape)
+        assert memory[:2].abs().sum() > 0 and not memory[2:].any()
+        assert whole["weights_memory"].shape == (10,)
+
+
+def test_format1_lars_momentum_tree_loads_and_another_optimizer_refuses():
+    """A tree as PRs 5-10 wrote it (format 1, no ``optimizer`` or
+    ``opt_counts``: lars_momentum's momentum) still loads bit for bit;
+    a tree of one optimizer is refused by a state of another, naming
+    both."""
+    from tests.torch_ranks import seeded_tree
+    src = _torch_state(0)
+    gen = torch.Generator().manual_seed(4)
+    for leaf in src.leaves(src.momentum):     # the padding stays 0
+        leaf.normal_(generator=gen)
+    legacy = canonical_state(src)
+    del legacy["optimizer"], legacy["opt_counts"]
+    assert legacy["format"] == 1 and "momentum" in legacy
+    dst = _torch_state(1)
+    load_canonical(dst, legacy)
+    _assert_bitwise(src, dst)
+    adam = _torch_state(2)
+    adam_state = create_train_state(adam.net, optimizer="adam")
+    with pytest.raises(ValueError, match="'lars_momentum'.*'adam'"):
+        load_canonical(adam_state, legacy)
+    with pytest.raises(ValueError, match="'adam'.*'lbfgs'"):
+        from tests.torch_ranks import seeded_net
+        load_canonical(create_train_state(seeded_net(), optimizer="lbfgs"),
+                       seeded_tree("adam"))

@@ -78,11 +78,26 @@ def assert_tree_matches(got, want, **tol):
         want["count"], want["step"], want["ema_step"])
 
 
+def tree_keys(tree):
+    """The keys of a canonical tree that hold tensors: params, target,
+    the optimizer's state (lars_momentum's momentum when it names none),
+    Polyak's when there, and the BatchNorm statistics."""
+    from byol_tpu_torch.training.state import opt_fields
+    return (["params", "target", "batch_stats"]
+            + list(opt_fields(tree.get("optimizer", "lars_momentum")))
+            + (["polyak"] if "polyak" in tree else []))
+
+
 def assert_trees_equal(a, b):
     """Two ranks' canonical trees, bit for bit."""
-    for key in ("params", "momentum", "target", "batch_stats"):
+    assert set(tree_keys(a)) == set(tree_keys(b))
+    for key in tree_keys(a):
+        if torch.is_tensor(a[key]):
+            assert torch.equal(a[key], b[key]), key
+            continue
         for name, value in a[key].items():
             assert torch.equal(value, b[key][name]), f"{key} {name}"
+    assert a.get("opt_counts", {}) == b.get("opt_counts", {})
 
 
 @pytest.mark.parametrize("arm", sorted(ARMS))
@@ -120,3 +135,55 @@ def test_two_ranks_match_jax_one_device(arm, tmp_path):
         assert_tree_matches(ranks[0]["state"], want, **TOL)
     assert_trees_equal(ranks[0]["state"], ranks[1]["state"])
     assert ranks[0]["metrics"] == ranks[1]["metrics"]
+
+
+# the paper loss's state at two ranks against one device, in float64;
+# the atol covers the Dense biases that feed a BatchNorm (test docstring)
+PAPER_F64_TOL = dict(rtol=1e-9, atol=1e-14)
+
+
+def test_paper_loss_state_at_two_ranks_equals_one_device_float64(tmp_path):
+    """The ``paper`` loss at world 2 (ROADMAP.md section 3.9): the port's
+    two-rank step over gloo against its own one-device step on the same
+    global batches, the unfused lars_momentum chain, both in float64 on
+    the CPU from one seeded state: params, momentum, target, BatchNorm
+    statistics and counters at rtol 1e-9 after 3 steps.  In fp32 the
+    per-row paper loss amplifies the rounding of another summation order
+    to ~1e-2 in three steps (the module docstring); in float64 the same
+    amplification leaves the two runs far inside 1e-9.  (The fused path
+    cannot take part: K1a's plain version rounds its row partials in
+    fp32.)
+
+    Measured (this CPU, torch 2.x): every leaf agrees within 1.0e-10
+    relative elementwise (4e-13 of its largest magnitude), except the
+    biases of the three Dense layers that feed a BatchNorm
+    (``projector.dense1``, ``projector.dense2``, ``predictor.dense1``):
+    the BatchNorm cancels them, so their gradient is 0 in exact
+    arithmetic and they hold rounding noise of 1e-20 to 4e-15 whose
+    relative error is meaningless (~100 %).  Hence atol 1e-14, from
+    their measured largest difference, 4.5e-15 (the momentum of
+    ``projector.dense1.bias``)."""
+    from tests.torch_ranks import seeded_tree, train
+    kw = dict(BASE, norm_mode="paper", fused_update=False)
+    spec = dict(canonical=seeded_tree(dtype=torch.float64), scfg=kw,
+                dtype=torch.float64,
+                batches=_batches("views", STEPS, 21, MICRO))
+    one = train(spec)
+    ranks = run_ranks("train", spec, WORLD, tmp_path)
+    assert_trees_equal(ranks[0]["state"], ranks[1]["state"])
+    got, want = ranks[0]["state"], one["state"]
+    assert got["params"]["backbone.stem_conv.weight"].dtype == torch.float64
+    for key in tree_keys(want):
+        for name, value in want[key].items():
+            np.testing.assert_allclose(got[key][name].numpy(), value.numpy(),
+                                       err_msg=f"{key} {name}",
+                                       **PAPER_F64_TOL)
+    assert (got["count"], got["step"], got["ema_step"]) == (
+        want["count"], want["step"], want["ema_step"]) == (STEPS, STEPS,
+                                                           STEPS + 1)
+    # the grouped step all-reduces its metrics as fp32
+    for i in range(STEPS):
+        for key in METRICS:
+            assert ranks[0]["metrics"][i][key] == pytest.approx(
+                one["metrics"][i][key], rel=1e-6)
+

@@ -186,17 +186,16 @@ def test_refusals_name_their_reasons():
     with pytest.raises(ValueError, match="strided microbatches"):
         _resolve(cfg.replace(optim=dataclasses.replace(cfg.optim,
                                                        accum_steps=3)))
-    unfused = cfg.replace(optim=dataclasses.replace(cfg.optim,
-                                                    fused_update="off"))
-    with pytest.raises(ValueError, match="requires --fused-update on"):
-        _resolve(unfused.replace(device=dataclasses.replace(
-            cfg.device, flat_resident="on")))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _resolve(unfused.replace(device=dataclasses.replace(
-            cfg.device, zero1="on")))
-    # accepted now: ZeRO-1, the resident layout, a DCN axis of 1
+    unfused = cfg.replace(optim=dataclasses.replace(
+        cfg.optim, fused_update="off", optimizer="lamb"))
+    # accepted now: ZeRO-1 and the resident layout, with the fused update
+    # and (the port's state is flat for every chain) with any unfused
+    # chain, and a DCN axis of 1
     assert _resolve(dev(zero1="on", flat_resident="on",
                         flat_bucket_mb=8)).batch_size_per_replica == 8
+    assert _resolve(unfused.replace(device=dataclasses.replace(
+        cfg.device, zero1="on", flat_resident="on"))).cfg.optim.optimizer \
+        == "lamb"
     for flags in (["--model-parallel", "2"], ["--sequence-parallel", "2"],
                   ["--remat"], ["--dcn-data-parallel", "2"]):
         parsed = config_from_args(build_parser().parse_args(

@@ -272,10 +272,11 @@ def test_resolve_matches_jax(batch, replicas, samples, epochs):
 
 
 @pytest.mark.parametrize("overrides", [
-    # --zero1 on and --flat-resident on are ported (parallel/); what stays
-    # refused in their place: ZeRO-1 without the fused update, and a DCN
-    # data axis
-    dict(device=dict(zero1="on")), dict(device=dict(dcn_data_parallel=2)),
+    # --zero1 on and --flat-resident on are ported (parallel/), with and
+    # without the fused update; what stays refused in their place: a
+    # remat policy JAX keeps beside 'dots', and a DCN data axis
+    dict(model=dict(remat_policy="save_block_out")),
+    dict(device=dict(dcn_data_parallel=2)),
     dict(model=dict(remat_policy="dots")), dict(model=dict(remat=True)),
     dict(device=dict(sequence_parallel=2)),
     dict(device=dict(model_parallel=2))])

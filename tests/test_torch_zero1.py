@@ -12,7 +12,12 @@ ZeRO-1 path, tests/test_zero1.py), with and without Polyak averaging and
 with the bucketed gather of ``--flat-resident on``; a bucketed gather
 equals the whole-buffer one; and a checkpoint written by a two-rank
 ``--zero1 on`` fit restores at world 1 with ``--zero1 off`` to the state
-the fit ended with.
+the fit ended with.  The same holds for the unfused chains of the
+optimizer registry (lars_momentum, lars_adam, lamb, lbfgs with --clip):
+their every cross-element sum is all-reduced, and ``--zero1 on`` gives
+``--zero1 off``'s state, optimizer state included, at rtol 1e-5; a
+two-rank lbfgs ZeRO-1 checkpoint restores at one rank without ZeRO-1,
+lbfgs's memories included, bit for bit.
 """
 import glob
 import os
@@ -30,8 +35,8 @@ from byol_tpu_torch.parallel.flat_state import plan_buckets
 from byol_tpu_torch.training.build import setup_training
 from byol_tpu_torch.training.state import canonical_state, load_canonical
 from tests.test_torch_accum import _batches
-from tests.test_torch_ddp_step import assert_trees_equal
-from tests.torch_ranks import run_ranks, tiny_net
+from tests.test_torch_ddp_step import assert_trees_equal, tree_keys
+from tests.torch_ranks import run_ranks, seeded_tree, tiny_net
 from tests.torch_ranks import one_torch_thread  # noqa: F401
 
 # odd sizes: segments cut by the ranks' ranges, a row-count not divisible
@@ -214,3 +219,69 @@ def test_two_rank_zero1_checkpoint_restores_at_one_rank(tmp_path):
     assert state.zero1 is None
     assert_trees_equal(canonical_state(state), ranks[0]["state"])
     assert not os.path.exists(tmp_path / "w1")
+
+
+# (optimizer, clip, base lr): the unfused chains under ZeRO-1
+CHAINS = [("lars_momentum", 0.0, 2.0), ("lars_adam", 0.0, 2.0),
+          ("lamb", 0.0, 0.01), ("lbfgs", 0.01, 0.01)]
+
+
+@pytest.mark.parametrize("optimizer,clip,base_lr", CHAINS,
+                         ids=[c[0] for c in CHAINS])
+def test_unfused_chain_zero1_on_equals_off_at_two_ranks(optimizer, clip,
+                                                        base_lr, tmp_path):
+    spec = dict(canonical=seeded_tree(optimizer), optimizer=optimizer,
+                clip=clip, base_lr=base_lr,
+                scfg=dict(normalize_inputs=True, norm_mode="reference",
+                          fused_update=False, telemetry="step"),
+                batches=_batches("views", 3, 21, 32))
+    out = {name: run_ranks("train", dict(spec, plan=plan), 2,
+                           tmp_path / name)
+           for name, plan in (("off", {}), ("on", dict(zero1=True)))}
+    on, off = out["on"][0], out["off"][0]
+    assert_trees_equal(on["state"], out["on"][1]["state"])
+    # every buffer of the optimizer's state but a vector lives on the
+    # rank's range
+    for name, n in on["opt_numel"].items():
+        if name != "weights_memory":
+            assert n * 2 >= off["opt_numel"][name] > n, name
+    assert on["state"]["opt_counts"] == off["state"]["opt_counts"]
+    for key in tree_keys(off["state"]):
+        want = off["state"][key]
+        got = on["state"][key]
+        for leaf, value in (want.items() if isinstance(want, dict)
+                            else [(key, want)]):
+            np.testing.assert_allclose(
+                (got[leaf] if isinstance(got, dict) else got).numpy(),
+                value.numpy(), err_msg=f"{key} {leaf}", **RTOL)
+    for step, (g, w) in enumerate(zip(on["metrics"], off["metrics"])):
+        assert np.isfinite(w["health"]).all()
+        np.testing.assert_allclose(g["health"], w["health"],
+                                   err_msg=f"step {step}", **RTOL)
+        assert g["loss_mean"] == pytest.approx(w["loss_mean"], rel=1e-6)
+
+
+def test_two_rank_lbfgs_zero1_checkpoint_restores_at_one_rank(tmp_path):
+    """The tiny net's lbfgs state under ZeRO-1 at two ranks, checkpointed
+    by rank 0 after 3 steps (its memories gathered from both ranges),
+    restores into a one-rank state without ZeRO-1 bit for bit."""
+    from tests.torch_ranks import tiny_state
+    spec = dict(canonical=seeded_tree("lbfgs"), optimizer="lbfgs",
+                clip=0.01, base_lr=0.01, plan=dict(zero1=True),
+                scfg=dict(normalize_inputs=True, norm_mode="reference",
+                          fused_update=False),
+                batches=_batches("views", 3, 21, 32),
+                save_to=str(tmp_path / "ckpt"))
+    ranks = run_ranks("train", spec, 2, tmp_path)
+    assert_trees_equal(ranks[0]["state"], ranks[1]["state"])
+    store = CheckpointStore(str(tmp_path / "ckpt"))
+    tree, _ = store.restore(best=False)
+    store.close()
+    assert tree["optimizer"] == "lbfgs" and tree["opt_counts"] == {
+        "count": 3}
+    state, plan = tiny_state(canonical=tree, optimizer="lbfgs")
+    assert state.zero1 is None
+    assert_trees_equal(plan.to_canonical(state), ranks[0]["state"])
+    # two of the ten memory slots hold the steps' differences
+    rows = state.opt["diff_params_memory"].abs().sum(dim=1)
+    assert (rows > 0).sum() == 2 and state.opt["weights_memory"][:2].all()

@@ -95,37 +95,73 @@ def tiny_net(dtype=torch.float32):
                    projection_size=PROJ, dtype=dtype)
 
 
-def tiny_state(converted, *, polyak_ema=0.0, zero1=False,
-               flat_resident=False, bucket_mb=64):
+def seeded_net(dtype=torch.float32, seed=0):
+    """The tiny net with flax's initializers drawn from ``seed``; a
+    float64 net holds float64 parameters and statistics too."""
+    from byol_tpu_torch.models.layers import init_params
+    net = tiny_net(dtype)
+    init_params(net, torch.Generator().manual_seed(seed))
+    return net.double() if dtype == torch.float64 else net
+
+
+def seeded_tree(optimizer="lars_momentum", dtype=torch.float32, seed=0):
+    """The canonical tree of a fresh train state of :func:`seeded_net`
+    (the target at 0.004 of the params, as JAX's ``reference`` init)."""
+    from byol_tpu_torch.training.state import (canonical_state,
+                                               create_train_state)
+    return canonical_state(create_train_state(
+        seeded_net(dtype, seed), ema_init_mode="reference",
+        optimizer=optimizer))
+
+
+def tiny_state(converted=None, *, canonical=None, polyak_ema=0.0,
+               zero1=False, flat_resident=False, bucket_mb=64,
+               optimizer="lars_momentum", dtype=torch.float32):
     """The tiny net's train state at this rank, laid out by the plan,
-    holding ``converted`` (``convert.train_state_from_flax``)."""
+    holding ``converted`` (``convert.train_state_from_flax``) or a
+    ``canonical`` tree."""
     from byol_tpu_torch.parallel import mesh
     from byol_tpu_torch.parallel.compile_plan import build_plan
     from byol_tpu_torch.training.state import (create_train_state,
                                                load_converted)
     plan = build_plan(mesh.world_size(), zero1=zero1,
                       flat_resident=flat_resident, bucket_mb=bucket_mb)
-    state = create_train_state(tiny_net(), polyak_ema=polyak_ema,
-                               pad_rows_to=plan.pad_rows_to)
+    net = tiny_net(dtype)
+    state = create_train_state(
+        net.double() if dtype == torch.float64 else net,
+        polyak_ema=polyak_ema, pad_rows_to=plan.pad_rows_to,
+        optimizer=optimizer)
     plan.prepare(state, weight_decay=WD)
-    load_converted(state, converted)
+    if canonical is not None:
+        plan.from_canonical(state, canonical)
+    else:
+        load_converted(state, converted)
     return state, plan
 
 
 def train(spec):
-    """Steps of the tiny net on this rank's rows of each global batch;
+    """Steps of the tiny net on this rank's rows of each global batch
+    (``spec['optimizer']``, default lars_momentum, at ``spec['clip']``);
     -> per-step metrics (host floats, the health vector as a list) and
-    the canonical state."""
+    the canonical state, which rank 0 also checkpoints under
+    ``spec['save_to']`` when given.  Without a process group: the
+    one-device steps on the whole batches."""
     from byol_tpu_torch.data import device_augment as aug
-    from byol_tpu_torch.optim.factory import build_optimizer
+    from byol_tpu_torch.optim.factory import (build_optimizer,
+                                              is_lars_optimizer)
     from byol_tpu_torch.parallel import mesh
     from byol_tpu_torch.training import steps as torch_steps
-    state, plan = tiny_state(spec["converted"],
+    optimizer = spec.get("optimizer", "lars_momentum")
+    state, plan = tiny_state(spec.get("converted"),
+                             canonical=spec.get("canonical"),
                              polyak_ema=spec["scfg"].get("polyak_ema", 0.0),
+                             optimizer=optimizer,
+                             dtype=spec.get("dtype", torch.float32),
                              **spec.get("plan", {}))
     tx, sched = build_optimizer(
-        "lars_momentum", base_lr=BASE_LR, global_batch_size=LR_BATCH,
-        weight_decay=WD, total_units=TOTAL, warmup_units=0)
+        optimizer, base_lr=spec.get("base_lr", BASE_LR),
+        global_batch_size=LR_BATCH, weight_decay=WD, total_units=TOTAL,
+        warmup_units=0, clip=spec.get("clip", 0.0))
     draw = None
     if spec.get("draws") is not None:
         table = spec["draws"]
@@ -134,8 +170,10 @@ def train(spec):
             views = table[(step, microbatch)]
             assert len(views[0][0]) == b, (len(views[0][0]), b)
             return tuple(aug.ViewParams(*v) for v in views)
+    scfg = dict(dict(lars_in_chain=is_lars_optimizer(optimizer)),
+                **spec["scfg"])
     step = torch_steps.make_train_step(
-        tx, torch_steps.StepConfig(total_train_steps=TOTAL, **spec["scfg"]),
+        tx, torch_steps.StepConfig(total_train_steps=TOTAL, **scfg),
         sched, draw_views=draw)
     metrics = []
     for batch in spec["batches"]:
@@ -144,8 +182,16 @@ def train(spec):
                            for k, v in local.items()})
         metrics.append({k: (v.tolist() if v.numel() > 1 else float(v))
                         for k, v in got.items()})
-    return {"metrics": metrics, "state": plan.to_canonical(state),
-            "momentum_numel": state.momentum.numel()}
+    tree = plan.to_canonical(state)
+    if spec.get("save_to") and mesh.is_primary():
+        from byol_tpu_torch.checkpoint.checkpointer import CheckpointStore
+        store = CheckpointStore(spec["save_to"])
+        store.save(0, tree)
+        store.close()
+    return {"metrics": metrics, "state": tree,
+            "opt_numel": {k: v.numel() for k, v in state.opt.items()},
+            "momentum_numel": (state.momentum.numel()
+                               if "momentum" in state.opt else None)}
 
 
 def fit_cli(spec):
