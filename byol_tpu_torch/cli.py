@@ -3,10 +3,14 @@ byol_tpu/cli.py).  Every flag of the JAX package's parser is here, with
 its spelling, default and choices, and maps to the same ``Config`` field.
 What the port has no code path for is refused with a message naming
 ROADMAP.md: ``--download`` when nonzero (the port reads local files
-only), ``--remat``/``--remat-policy`` other than ``none``, model and
-sequence parallelism, ``--profile-port`` above 0 (torch.profiler has no
-capture server).  ``--visdom-url``/``--visdom-port`` parse, warn and fall
-back to ``--grapher``, as in JAX.  ``--optimizer`` takes the JAX registry
+only), ``--model-parallel`` above 1 (the TP heads), ``--profile-port``
+above 0 (torch.profiler has no capture server).  ``--remat`` and
+``--remat-policy`` checkpoint each residual or encoder block under JAX's
+named policies (core/remat.py); ``--sequence-parallel N`` lays the world
+out as (data, sequence) and shards ViT attention over the sequence
+groups under ``--attn-impl ring`` (parallel/ring_attention.py).
+``--visdom-url``/``--visdom-port`` parse, warn and fall back to
+``--grapher``, as in JAX.  ``--optimizer`` takes the JAX registry
 (rmsprop, adam, adadelta, sgd, momentum, lamb, lbfgs, each bare or as
 ``lars_<base>``) behind ``--clip``; ``--check-numerics`` runs the backward
 under autograd's anomaly mode and checks the loss and params each step.
@@ -243,15 +247,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-parallel", type=int, default=1,
                    help="refused above 1 (ROADMAP.md, section 1 item 14)")
     p.add_argument("--sequence-parallel", type=int, default=1,
-                   help="refused above 1 (ROADMAP.md, section 1 item 14)")
+                   help="ranks per sequence group (ring attention); the "
+                        "data axis is the world over this")
     p.add_argument("--remat", action="store_true",
-                   help="refused (ROADMAP.md, section 1 item 14)")
+                   help="per-block rematerialization (alias for "
+                        "--remat-policy full)")
     p.add_argument("--remat-policy", type=str, default="none",
                    choices=("none", "full", "nothing", "dots",
                             "dots_no_batch", "save_block_out",
                             "offload_block_out"),
-                   help="refused unless 'none' (ROADMAP.md, section 1 item "
-                        "14)")
+                   help="named per-block checkpoint policy (wins over "
+                        "--remat)")
     p.add_argument("--fuse-views", action="store_true",
                    help="one encoder call for both views (changes BN batch "
                         "statistics vs the reference)")
@@ -262,8 +268,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "input (the same numbers and checkpoints)")
     p.add_argument("--attn-impl", type=str, default="dense",
                    choices=("dense", "flash", "ring"),
-                   help="ViT attention: dense, or flash (kernel K3); ring "
-                        "is refused (ROADMAP.md, section 1 item 14)")
+                   help="ViT attention: dense, ring (sequence-parallel "
+                        "over --sequence-parallel ranks), or flash (kernel "
+                        "K3, forward only: serving)")
     p.add_argument("--pooling", type=str, default="cls",
                    choices=("cls", "gap"), help="ViT feature pooling")
     p.add_argument("--loss-norm-mode", type=str, default="paper",
@@ -348,7 +355,11 @@ def config_from_args(args: argparse.Namespace) -> Config:
                           accum_steps=args.accum_steps,
                           accum_bn_mode=args.accum_bn_mode,
                           fused_update=args.fused_update),
-        device=DeviceConfig(num_replicas=args.num_replicas or world_size(),
+        # the data axis: what the sequence and model axes leave of the world
+        device=DeviceConfig(num_replicas=args.num_replicas or max(
+                                world_size() // max(args.sequence_parallel
+                                                    * args.model_parallel,
+                                                    1), 1),
                             workers_per_replica=args.workers_per_replica,
                             distributed_master=args.distributed_master,
                             distributed_rank=args.distributed_rank,
@@ -414,6 +425,8 @@ def _run(args: argparse.Namespace, device) -> int:
         if args.profile_port:
             from byol_tpu_torch.observability import profiling
             profiling.start_server(args.profile_port)
+        # the loader shards over the data axis of the laid-out mesh
+        mesh.init_mesh(cfg.device.sequence_parallel, cfg.device.model_parallel)
         # one loader serves both training and the optional linear eval:
         # at ImageNet scale building it twice doubles the startup scan
         loader = get_loader(cfg, device=device)

@@ -171,17 +171,14 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _refuse_unported(cfg: Config) -> None:
     """The values whose code paths the port does not have yet."""
-    if cfg.device.model_parallel > 1 or cfg.device.sequence_parallel > 1:
-        raise _not_ported("--model-parallel / --sequence-parallel > 1",
+    if cfg.device.model_parallel > 1:
+        raise _not_ported("--model-parallel > 1 (the TP heads)",
                           "section 1 item 14")
     if cfg.device.dcn_data_parallel > 1:
         raise _not_ported(
             "--dcn-data-parallel > 1 (NCCL builds its own rings over NVLink "
             "and InfiniBand; the port's data axis is one process group)",
             "section 1 item 10")
-    if cfg.model.remat or cfg.model.remat_policy != "none":
-        raise _not_ported("--remat / --remat-policy other than 'none'",
-                          "section 1 item 14")
 
 
 def resolve(cfg: Config, *, num_train_samples: int, num_test_samples: int,
@@ -262,6 +259,8 @@ def resolve(cfg: Config, *, num_train_samples: int, num_test_samples: int,
     if cfg.device.nan_policy == "halt" and cfg.device.telemetry == "off":
         raise ValueError("--nan-policy halt requires --telemetry epoch|step")
     _refuse_unported(cfg)
+    from byol_tpu_torch.core.remat import resolve_policy_name
+    resolve_policy_name(cfg.model.remat, cfg.model.remat_policy)  # fail fast
     per_replica_batch = cfg.task.batch_size // n_rep
     per_replica_train = num_train_samples // n_rep
     steps_per_epoch = per_replica_train // per_replica_batch

@@ -19,7 +19,8 @@ Two routes make the views:
 An on-disk ``valid/`` root wins over ``valid_fraction``, which otherwise
 holds out the JAX package's seeded split of the train files.
 
-Data parallel, as the JAX loader shards per host: rank r of w reads the
+Data parallel, as the JAX loader shards per host: data rank r of w (the
+mesh's data axis: a sequence group's ranks share r) reads the
 files ``[r::w]`` of the train and valid lists (the valid split carved
 first, the same on every rank), and of the test list only under
 ``shard_eval``; the native stream seed adds ``7_919 * r`` as JAX's does,

@@ -40,15 +40,17 @@ train split (:func:`carve_valid_split`, the JAX split), evaluated like the
 test split.  :func:`get_loader` prints one line that says which path makes
 the train views.
 
-Data parallel (parallel/mesh.py), as the JAX loader shards per host: each
-rank reads batches of ``global / world`` rows from its contiguous shard
-of the train split (:func:`shard_arrays`, JAX's ``_shard_arrays``) and of
-the valid split, which is carved identically on every rank first; the
-test split stays whole unless ``shard_eval`` (JAX's Quirk Q9), and the
-trainer deals its batches over the ranks.  A sample's host draws are
-keyed by its index in the unsharded split, so the ranks' views are
-independent; the native path mixes the rank into its stream seed as the
-JAX image_folder path does (``+ 7_919 * rank``, nothing at rank 0).
+Data parallel (parallel/mesh.py), as the JAX loader shards per host, over
+the mesh's data axis: data rank d of D reads batches of ``global / D``
+rows from its contiguous shard of the train split (:func:`shard_arrays`,
+JAX's ``_shard_arrays``) and of the valid split, which is carved
+identically on every rank first; the test split stays whole unless
+``shard_eval`` (JAX's Quirk Q9), and the trainer deals its batches over
+the data ranks.  The ranks of one sequence group share d and read the
+same rows.  A sample's host draws are keyed by its index in the unsharded
+split, so the data ranks' views are independent; the native path mixes
+the data index into its stream seed as the JAX image_folder path does
+(``+ 7_919 * d``, nothing at d = 0).
 """
 from __future__ import annotations
 
@@ -420,8 +422,8 @@ def get_loader(cfg: Config, *, num_fake_samples: int = 512,
 
     ``device``: where the trainer runs (the ``device`` backend makes its
     views there; the host path pins its batches for a card).
-    ``process``: ``(rank, world)`` of the data axis, default the process
-    group's (``(0, 1)`` without one)."""
+    ``process``: ``(d, D)`` of the data axis, default the laid-out
+    mesh's (``(0, 1)`` without a process group)."""
     task = cfg.task.task
     if task in ("multi_augment_image_folder",
                 "dali_multi_augment_image_folder"):
@@ -433,7 +435,7 @@ def get_loader(cfg: Config, *, num_fake_samples: int = 512,
     index, count = process if process is not None else mesh.process_info()
     if cfg.task.batch_size % count:
         raise ValueError(f"global batch {cfg.task.batch_size} not divisible "
-                         f"by the world size {count}")
+                         f"by the data axis {count}")
     batch = cfg.task.batch_size // count
     shard_eval = cfg.device.shard_eval and count > 1
     backend = resolve_backend(cfg, task)

@@ -12,12 +12,16 @@
   BIASED batch variance in the running update (torch's own update uses the
   unbiased one), and a switch that normalises with batch statistics
   without updating the running ones (the target network's forward).
-  Inside a process group of world > 1 (or with ``sync`` set) the train-mode
-  statistics are the global batch's, as under JAX's GSPMD step: flax's
-  ``_compute_stats`` (E[x] and E[x^2] all-reduced in one collective, the
-  variance max(0, E[x^2] - E[x]^2)) with the gradient flowing through the
-  all-reduce; not ``nn.SyncBatchNorm``, whose running variance is the
-  unbiased one.
+  Inside a process group whose data axis is > 1 (or with ``sync`` set)
+  the train-mode statistics are the global batch's, as under JAX's GSPMD
+  step (the data group's: the ranks of a sequence group hold the same
+  rows): flax's ``_compute_stats`` (E[x] and E[x^2] all-reduced in one
+  collective, the variance max(0, E[x^2] - E[x]^2)) with the gradient
+  flowing through the all-reduce; not ``nn.SyncBatchNorm``, whose running
+  variance is the unbiased one.  In a remat recompute
+  (core/remat.py::recomputing) the same ops run and the running
+  statistics are left alone: they move once per forward, as under flax's
+  ``nn.remat``.
 - :func:`init_params` draws flax's initializers (lecun_normal kernels, or
   he_normal for the ResNet convs; zero biases; unit LayerNorm/BatchNorm
   scales, or zero where a block's last BN is zero-initialised) from an
@@ -33,8 +37,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from byol_tpu_torch.core.precision import at_least_fp32
+from byol_tpu_torch.core.remat import recomputing
 from byol_tpu_torch.parallel.collectives import psum
-from byol_tpu_torch.parallel.mesh import world_size
+from byol_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
 
 # stddev of a unit normal truncated to [-2, 2]: lecun_normal divides by it
 # so that the truncated draw keeps variance 1/fan_in
@@ -82,15 +87,16 @@ class Conv(nn.Conv2d):
 
 
 class LayerNorm(nn.LayerNorm):
-    """``nn.LayerNorm(dtype=...)``: fp32 statistics, output in ``dtype``."""
+    """``nn.LayerNorm(dtype=...)``: statistics in at least fp32 (a float64
+    net keeps float64), output in ``dtype``."""
 
     def __init__(self, dim: int, dtype: torch.dtype = torch.float32) -> None:
         super().__init__(dim, eps=1e-6)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(self.dtype)
+        return F.layer_norm(at_least_fp32(x), self.normalized_shape,
+                            self.weight, self.bias, self.eps).to(self.dtype)
 
 
 class BatchNorm(nn.Module):
@@ -104,10 +110,11 @@ class BatchNorm(nn.Module):
     - Eval mode normalises with the running statistics.
     - Statistics and the output are float32 whatever the input dtype (flax
       promotes a bf16 input against its float32 scale).
-    - ``sync`` (None: when the world is > 1): train-mode statistics over
-      every rank's rows (:meth:`_synced`).  At world 1 the class keeps the
-      one-device code path.  JAX's ``convert_to_sync_bn`` changes nothing
-      here, as in JAX, where GSPMD syncs the statistics either way.
+    - ``sync`` (None: when the data axis is > 1): train-mode statistics
+      over every data rank's rows (:meth:`_synced`).  At a data axis of 1
+      the class keeps the one-device code path.  JAX's
+      ``convert_to_sync_bn`` changes nothing here, as in JAX, where GSPMD
+      syncs the statistics either way.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9,
@@ -133,7 +140,8 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps)
-        sync = self.sync if self.sync is not None else world_size() > 1
+        sync = (self.sync if self.sync is not None
+                else axis_size(DATA_AXIS) > 1)
         if sync:
             return self._synced(x)
         if not self.update_stats:
@@ -147,6 +155,9 @@ class BatchNorm(nn.Module):
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
                          self.eps)
+        if recomputing():
+            # a remat recompute runs the same ops; the statistics moved once
+            return y
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
@@ -159,14 +170,14 @@ class BatchNorm(nn.Module):
         the running statistics ticked with them."""
         c = x.shape[1]
         axes = [d for d in range(x.ndim) if d != 1]
-        count = x.numel() // c * world_size()
+        count = x.numel() // c * axis_size(DATA_AXIS)
         sums = psum(torch.stack([x.sum(axes), (x * x).sum(axes)]))
         mean = sums[0] / count
         var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
         shape = (1, c) + (1,) * (x.ndim - 2)
         mul = self.weight * torch.rsqrt(var + self.eps)
         y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        if self.update_stats:
+        if self.update_stats and not recomputing():
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)

@@ -14,7 +14,11 @@ flax tree loads with ``load_state_dict(strict=True)``:
   conv casts its input to the compute dtype;
 - ``zero_init_residual`` zeroes each block's last BN scale;
 - a block has a downsample branch exactly where flax's shape test finds
-  one: a stride or a width change.
+  one: a stride or a width change;
+- each block's output is tagged ``block_out`` and each block runs under
+  the remat policy (core/remat.py::wrap_block) that ``remat`` and
+  ``remat_policy`` resolve to, as the flax ResNet wraps its block class;
+  ``remat_policy`` is an attribute (core/remat.py::set_remat_policy).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from byol_tpu_torch.core import remat as remat_lib
 from byol_tpu_torch.models.layers import BatchNorm, Conv, he_normal_
 
 
@@ -90,7 +95,7 @@ class BasicBlock(nn.Module):
         residual = x
         if self.has_downsample:
             residual = self.downsample_bn(self.downsample_conv(x))
-        return F.relu(y + residual)
+        return remat_lib.tag_block_out(F.relu(y + residual))
 
 
 class Bottleneck(nn.Module):
@@ -125,7 +130,7 @@ class Bottleneck(nn.Module):
         residual = x
         if self.has_downsample:
             residual = self.downsample_bn(self.downsample_conv(x))
-        return F.relu(y + residual)
+        return remat_lib.tag_block_out(F.relu(y + residual))
 
 
 class ResNet(nn.Module):
@@ -135,8 +140,11 @@ class ResNet(nn.Module):
                  width: int = 64, dtype: torch.dtype = torch.float32,
                  small_inputs: bool = False,
                  zero_init_residual: bool = True, stem: str = "conv",
-                 inner_multiplier: int = 1, in_channels: int = 3) -> None:
+                 inner_multiplier: int = 1, in_channels: int = 3,
+                 remat: bool = False, remat_policy: str = "none") -> None:
         super().__init__()
+        self.remat_policy = remat_lib.resolve_policy_name(remat,
+                                                          remat_policy)
         if stem not in ("conv", "space_to_depth"):
             raise ValueError(f"unknown stem {stem!r}; 'conv' | "
                              "'space_to_depth'")
@@ -181,7 +189,9 @@ class ResNet(nn.Module):
             x = F.max_pool2d(x, 3, 2, padding=1)
         for i, n_blocks in enumerate(self.stage_sizes):
             for j in range(n_blocks):
-                x = getattr(self, f"stage{i + 1}_block{j + 1}")(x)
+                x = remat_lib.wrap_block(
+                    getattr(self, f"stage{i + 1}_block{j + 1}"),
+                    self.remat_policy)(x)
         return x.mean(dim=(2, 3)).to(self.dtype)   # global average pool
 
 
@@ -227,9 +237,11 @@ def feature_dim(name: str) -> int:
 
 def make_resnet(name: str, *, dtype=torch.float32, small_inputs: bool = False,
                 zero_init_residual: bool = True,
-                stem: str = "conv") -> ResNet:
+                stem: str = "conv", remat: bool = False,
+                remat_policy: str = "none") -> ResNet:
     stages, block, width, inner_multiplier = resnet_layout(name)
     return ResNet(stage_sizes=stages, block_cls=block, width=width,
                   dtype=dtype, small_inputs=small_inputs,
                   zero_init_residual=zero_init_residual, stem=stem,
-                  inner_multiplier=inner_multiplier)
+                  inner_multiplier=inner_multiplier, remat=remat,
+                  remat_policy=remat_policy)

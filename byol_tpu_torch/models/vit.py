@@ -9,10 +9,13 @@ parameter tree loads with ``load_state_dict(strict=True)``:
 - pre-LN blocks, LayerNorm eps 1e-6 with fp32 statistics under bf16;
 - the tanh approximation of GELU (flax ``nn.gelu``'s default);
 - qkv split as ``reshape(b, s, 3, heads, head_dim)``;
-- attention behind :func:`byol_tpu_torch.ops.attention.get_attention_fn`.
-
-``remat``/``remat_policy`` are accepted for the same constructor surface and
-do nothing here: this slice runs inference only.
+- attention behind :func:`byol_tpu_torch.ops.attention.get_attention_fn`
+  (``dense``, ``flash`` for inference, ``ring`` over the sequence axis);
+- each encoder block's output tagged ``block_out`` and each block run
+  under the remat policy (core/remat.py::wrap_block) that ``remat`` and
+  ``remat_policy`` resolve to, as the flax ViT wraps its block class;
+  ``remat_policy`` is an attribute, so one built net can switch it
+  (core/remat.py::set_remat_policy).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from byol_tpu_torch.core import remat as remat_lib
 from byol_tpu_torch.models.layers import Conv, Dense, LayerNorm
 from byol_tpu_torch.ops.attention import get_attention_fn
 
@@ -70,7 +74,7 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        return remat_lib.tag_block_out(x + self.mlp(self.ln2(x)))
 
 
 class ViT(nn.Module):
@@ -83,7 +87,8 @@ class ViT(nn.Module):
                  remat_policy: str = "none", *, image_size: int = 224,
                  in_channels: int = 3) -> None:
         super().__init__()
-        del remat, remat_policy              # inference: nothing to recompute
+        self.remat_policy = remat_lib.resolve_policy_name(remat,
+                                                          remat_policy)
         if pooling not in ("cls", "gap"):
             raise ValueError(f"unknown pooling {pooling!r}")
         if image_size % patch_size:
@@ -126,7 +131,8 @@ class ViT(nn.Module):
             x = torch.cat([cls, x], dim=1)
         x = x + self.pos_embedding.to(dt)
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+            x = remat_lib.wrap_block(getattr(self, f"block{i}"),
+                                     self.remat_policy)(x)
         x = self.ln_final(x)
         feat = x[:, 0] if self.pooling == "cls" else x.mean(dim=1)
         return feat.to(dt)

@@ -7,7 +7,8 @@ signature::
 
   ``dense``  plain PyTorch softmax attention;
   ``flash``  the hand-written CUDA kernel (ops/flash_attention.py);
-  ``ring``   sequence-parallel attention, not ported yet (ROADMAP.md).
+  ``ring``   sequence-parallel attention over the mesh's ``sequence``
+             axis (parallel/ring_attention.py).
 """
 from __future__ import annotations
 
@@ -15,17 +16,18 @@ from typing import Callable
 
 import torch
 
+from byol_tpu_torch.core.precision import at_least_fp32
+
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Standard softmax attention. (B, H, S, D) -> (B, H, S, D).
 
-    Softmax statistics in fp32 regardless of compute dtype, matmuls in the
-    input dtype — as the JAX ``dense_attention``."""
+    Softmax statistics in (at least) fp32 regardless of compute dtype,
+    matmuls in the input dtype — as the JAX ``dense_attention``."""
     scale = q.shape[-1] ** -0.5
-    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
-    weights = torch.exp(scores.float()
-                        - scores.amax(dim=-1, keepdim=True).float())
+    scores = at_least_fp32(torch.matmul(q, k.transpose(-1, -2)) * scale)
+    weights = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     weights = weights / weights.sum(dim=-1, keepdim=True)
     return torch.matmul(weights.to(v.dtype), v)
 
@@ -37,9 +39,7 @@ def get_attention_fn(impl: str) -> Callable:
         from byol_tpu_torch.ops.flash_attention import flash_attention
         return flash_attention
     if impl == "ring":
-        raise NotImplementedError(
-            "attn_impl 'ring' (sequence-parallel attention over "
-            "torch.distributed) is not ported yet; see ROADMAP.md, queue 1, "
-            "'ring attention'")
+        from byol_tpu_torch.parallel.ring_attention import ring_attention
+        return ring_attention
     raise ValueError(f"unknown attention impl {impl!r}; "
                      f"known: dense, flash, ring")

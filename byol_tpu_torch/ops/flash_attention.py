@@ -17,8 +17,9 @@ states the bound at the serving shape and what the design does about it.
 - :data:`LAUNCHES` counts kernel launches, so a run can show that its main
   path went through the kernel.
 
-Forward only, as the reference (it defines no VJP): inputs that require a
-gradient are refused until the ViT training slice adds a backward.
+Forward only, as the reference (its pallas_call has no custom_vjp, so no
+TPU kernel has a backward to port): inputs that require a gradient are
+refused, and training runs ``--attn-impl dense`` or ``ring``.
 """
 from __future__ import annotations
 
@@ -113,8 +114,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: the head dim must be contiguous")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "flash_attention has no backward yet (the reference is forward "
-            "only); it comes with the ViT training slice in ROADMAP.md")
+            "flash_attention is forward only: the JAX kernel it ports has "
+            "no backward (its pallas_call has no custom_vjp); train with "
+            "--attn-impl dense|ring")
 
 
 def _rows_16b_aligned(t: torch.Tensor) -> bool:

@@ -4,7 +4,9 @@ of byol_tpu/parallel/compile_plan.py).
 JAX's plan owns every jit entry point's shardings and donations.  The
 port has no compiler to instruct: its state is resident and flat, and the
 train step updates it in place (what JAX's donation of the state buys).
-The plan keeps what is left: the world size, ``--zero1``,
+The plan keeps what is left: the data axis's size (``world``: the ranks
+ZeRO-1 shards over; a sequence group's ranks hold one range each), the
+sequence axis's, ``--zero1``,
 ``--flat-resident`` and ``--flat-bucket-mb``; it shards a train state
 (:meth:`CompilePlan.prepare`), names itself in the run header
 (:meth:`CompilePlan.describe`, JAX's fields) and converts at the
@@ -21,7 +23,8 @@ import torch
 
 from byol_tpu_torch.parallel import collectives
 from byol_tpu_torch.parallel.flat_state import DEFAULT_BUCKET_MB
-from byol_tpu_torch.parallel.mesh import AXIS_NAMES, DATA_AXIS, rank
+from byol_tpu_torch.parallel.mesh import (AXIS_NAMES, DATA_AXIS, MODEL_AXIS,
+                                          SEQUENCE_AXIS, process_info)
 from byol_tpu_torch.parallel.zero1 import Zero1Context
 from byol_tpu_torch.training.state import opt_fields
 
@@ -39,10 +42,11 @@ DONATE = {
 
 @dataclasses.dataclass(frozen=True)
 class CompilePlan:
-    world: int = 1
+    world: int = 1                  # the data axis
     zero1: bool = False
     flat_resident: bool = False
     bucket_mb: int = DEFAULT_BUCKET_MB
+    sequence: int = 1
 
     @property
     def pad_rows_to(self) -> int:
@@ -66,7 +70,7 @@ class CompilePlan:
         if not self.zero1:
             return
         ctx = Zero1Context.build(
-            state.seg, world=self.world, rank=rank(),
+            state.seg, world=self.world, rank=process_info()[0],
             weight_decay=weight_decay, device=state.params.device,
             bucket_mb=self.bucket_mb if self.flat_resident else None)
         if state.params.numel() != ctx.total_elements:
@@ -86,8 +90,8 @@ class CompilePlan:
     def describe(self) -> Dict[str, Any]:
         """The run header's ``sharding_plan``, with JAX's fields."""
         return {
-            "mesh_shape": {DATA_AXIS: int(self.world), AXIS_NAMES[1]: 1,
-                           AXIS_NAMES[2]: 1},
+            "mesh_shape": {DATA_AXIS: int(self.world),
+                           SEQUENCE_AXIS: int(self.sequence), MODEL_AXIS: 1},
             "axis_names": list(AXIS_NAMES),
             "zero1": "on" if self.zero1 else "off",
             "donate_argnums": {k: list(v) for k, v in DONATE.items()},
@@ -112,16 +116,19 @@ class CompilePlan:
 
 def build_plan(world: int = 1, *, zero1: bool = False,
                flat_resident: bool = False,
-               bucket_mb: int = DEFAULT_BUCKET_MB) -> CompilePlan:
+               bucket_mb: int = DEFAULT_BUCKET_MB,
+               sequence: int = 1) -> CompilePlan:
     """The one constructor: ``cfg.device.zero1 == 'on'`` -> a ZeRO-1
     plan, ``flat_resident`` -> bucketed gathers."""
     if bucket_mb < 1:
         raise ValueError(f"flat_bucket_mb must be >= 1, got {bucket_mb}")
     return CompilePlan(world=world, zero1=zero1, flat_resident=flat_resident,
-                       bucket_mb=bucket_mb)
+                       bucket_mb=bucket_mb, sequence=sequence)
 
 
 def plan_from_cfg(cfg, world: int) -> CompilePlan:
+    """The plan of ``cfg`` over a data axis of ``world`` ranks."""
     return build_plan(world, zero1=cfg.device.zero1 == "on",
                       flat_resident=cfg.device.flat_resident == "on",
-                      bucket_mb=cfg.device.flat_bucket_mb)
+                      bucket_mb=cfg.device.flat_bucket_mb,
+                      sequence=cfg.device.sequence_parallel)

@@ -1,12 +1,21 @@
-"""The data axis over torch.distributed (counterpart of
+"""The mesh over torch.distributed (counterpart of
 byol_tpu/parallel/mesh.py).
 
-One process per card: rank r drives ``cuda:LOCAL_RANK`` and holds rows
-``[r L, (r + 1) L)`` of every global batch, ``L = global / world``, the
-process-major order of JAX's ``shard_batch_to_mesh``.  The mesh has the
-data axis only; ``--model-parallel`` and ``--sequence-parallel`` > 1 are
-refused (ROADMAP.md, section 1 item 14), and ``--dcn-data-parallel`` > 1
-has no meaning here, since NCCL builds its own rings over NVLink and IB.
+One process per card.  The world is laid out as JAX reshapes its devices
+into the ``(data, sequence, model)`` mesh: rank = (d S + s) M + m, for data
+index d < D, sequence index s < S and model index m < M
+(:func:`init_mesh`).  The data group (the ranks that share s and m) holds
+the rows of the global batch, data rank d its rows ``[d L, (d + 1) L)``,
+``L = global / D``, the process-major order of JAX's
+``shard_batch_to_mesh``; the ranks of one sequence group (the ranks that
+share d and m) hold the same rows, and ring attention
+(parallel/ring_attention.py) runs across them.  :func:`process_info` is
+the data axis's ``(d, D)``.  With no sequence axis (S = M = 1, the default)
+the data group is the whole world and every helper does what it did
+before the sequence axis existed.  ``--model-parallel`` > 1 is refused
+(ROADMAP.md, section 1 item 14: the TP heads), and
+``--dcn-data-parallel`` > 1 has no meaning here, since NCCL builds its own
+rings over NVLink and IB.
 
 :func:`initialize_distributed` joins the process group: from the
 environment ``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
@@ -28,13 +37,27 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
-# the JAX mesh's axes; the port's sequence and model axes are size 1
-AXIS_NAMES = (DATA_AXIS, "sequence", "model")
+SEQUENCE_AXIS = "sequence"
+MODEL_AXIS = "model"
+# the JAX mesh's axes; the port's model axis is size 1
+AXIS_NAMES = (DATA_AXIS, SEQUENCE_AXIS, MODEL_AXIS)
 
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 # a gloo group beside an NCCL one, for the host's small control messages
 # (lockstep statuses, the preemption flag): they then wait on no stream
 _control_group = None
+
+
+@dataclasses.dataclass(frozen=True)
+class _Axis:
+    size: int
+    index: int
+    ranks: Tuple[int, ...]    # the global ranks of this rank's group
+    group: Any                # None: the default group (or no group)
+
+
+# init_mesh's layout; None: the data axis is the world
+_layout: Optional[Dict[str, _Axis]] = None
 
 
 def launched_by_torchrun() -> bool:
@@ -117,8 +140,11 @@ def rank() -> int:
 
 
 def process_info() -> Tuple[int, int]:
-    """``(rank, world)``, JAX's ``(process_index, process_count)``."""
-    return rank(), world_size()
+    """``(d, D)``: the data axis's index and size, what JAX's
+    ``(process_index, process_count)`` is to the loader and the split of
+    the batch (the whole world's ``(rank, world)`` without a sequence
+    axis)."""
+    return axis_index(DATA_AXIS), axis_size(DATA_AXIS)
 
 
 def is_primary() -> bool:
@@ -132,45 +158,128 @@ def barrier() -> None:
 
 
 def shutdown() -> None:
-    global _control_group
+    global _control_group, _layout
     if is_initialized():
         dist.destroy_process_group()
     _control_group = None
+    _layout = None
+
+
+def init_mesh(sequence: int = 1, model: int = 1) -> Dict[str, int]:
+    """Lay the world out as ``(data, sequence, model)`` and build the
+    data and sequence groups; every rank calls it with the same sizes
+    (the groups are made in one order on every rank).  -> the mesh shape.
+    ``sequence`` 1 keeps the data axis the whole world and builds no
+    group."""
+    global _layout
+    if model > 1:
+        raise NotImplementedError(
+            "--model-parallel > 1 (the TP heads) is not ported to "
+            "byol_tpu_torch yet (ROADMAP.md, section 1 item 14)")
+    world, r = world_size(), rank()
+    tp_sp = sequence * model
+    if tp_sp < 1 or tp_sp > world or world % tp_sp:
+        raise ValueError(
+            f"model_parallel x sequence_parallel = {tp_sp} does not "
+            f"divide the {world} available devices")
+    n_data = world // tp_sp
+    if mesh_shape() == {DATA_AXIS: n_data, SEQUENCE_AXIS: sequence,
+                        MODEL_AXIS: model}:
+        return mesh_shape()                  # laid out already
+    if sequence == 1:
+        _layout = None
+        return mesh_shape()
+    # rank = d S + s (the model axis is 1); one order of new_group calls on
+    # every rank: the data groups, then the sequence groups
+    d, s = divmod(r, sequence)
+    layout = {MODEL_AXIS: _Axis(1, 0, (r,), None)}
+    for s_ in range(sequence):
+        ranks = tuple(d_ * sequence + s_ for d_ in range(n_data))
+        group = dist.new_group(list(ranks))
+        if s_ == s:
+            layout[DATA_AXIS] = _Axis(n_data, d, ranks, group)
+    for d_ in range(n_data):
+        ranks = tuple(d_ * sequence + s_ for s_ in range(sequence))
+        group = dist.new_group(list(ranks))
+        if d_ == d:
+            layout[SEQUENCE_AXIS] = _Axis(sequence, s, ranks, group)
+    _layout = layout
+    return mesh_shape()
+
+
+def _axis(name: str) -> _Axis:
+    if name not in AXIS_NAMES:
+        raise ValueError(f"unknown mesh axis {name!r}; known: {AXIS_NAMES}")
+    if _layout is not None:
+        return _layout[name]
+    if name == DATA_AXIS:
+        return _Axis(world_size(), rank(), tuple(range(world_size())), None)
+    return _Axis(1, 0, (rank(),), None)
+
+
+def axis_size(name: str) -> int:
+    """The size of a mesh axis (1 without a group)."""
+    return _axis(name).size
+
+
+def axis_index(name: str) -> int:
+    """This rank's index along a mesh axis."""
+    return _axis(name).index
+
+
+def axis_group(name: str):
+    """The process group of this rank's slice along ``name`` (None: the
+    default group)."""
+    return _axis(name).group
+
+
+def axis_ranks(name: str) -> Tuple[int, ...]:
+    """The global ranks of this rank's group along ``name``, in axis
+    order."""
+    return _axis(name).ranks
+
+
+def mesh_shape() -> Dict[str, int]:
+    """``{data, sequence, model}`` sizes of the laid-out world."""
+    return {a: axis_size(a) for a in AXIS_NAMES}
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """The data axis: ``data`` processes (-1: the whole world)."""
+    """The data axis: ``data`` processes (-1: what the laid-out mesh's
+    sequence and model axes leave of the world)."""
 
     data: int = -1
 
     def resolved(self) -> int:
-        world = world_size()
-        if self.data not in (-1, world):
+        n_data = axis_size(DATA_AXIS)
+        if self.data not in (-1, n_data):
             raise ValueError(f"mesh data axis {self.data} != world size "
-                             f"{world}")
-        return world
+                             f"{world_size()} over sequence x model "
+                             f"{world_size() // n_data}")
+        return n_data
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: self.resolved(), "sequence": 1, "model": 1}
+        return dict(mesh_shape(), **{DATA_AXIS: self.resolved()})
 
 
 def local_rows(global_batch: int) -> int:
-    """Rows of a global batch on each rank."""
-    world = world_size()
-    if global_batch % world:
+    """Rows of a global batch on each data rank."""
+    n_data = axis_size(DATA_AXIS)
+    if global_batch % n_data:
         raise ValueError(f"global batch {global_batch} not divisible by the "
-                         f"world size {world}")
-    return global_batch // world
+                         f"data axis {n_data}")
+    return global_batch // n_data
 
 
 def shard_batch(batch: Mapping[str, Any],
                 index: Optional[int] = None,
                 count: Optional[int] = None) -> Dict[str, Any]:
-    """This rank's rows ``[r L, (r + 1) L)`` of a global batch."""
-    index = rank() if index is None else index
-    count = world_size() if count is None else count
+    """This data rank's rows ``[d L, (d + 1) L)`` of a global batch."""
+    d, n_data = process_info()
+    index = d if index is None else index
+    count = n_data if count is None else count
     n = len(next(iter(batch.values())))
     if n % count:
         raise ValueError(f"global batch {n} not divisible by {count} ranks")

@@ -115,6 +115,9 @@ class Zero1Context:
         """The ranks' mean gradient over this rank's real rows."""
         if self.grad_shard is None:          # no process group: world 1
             return grads[self._range()]
+        if self.grad_shard.dtype != grads.dtype:
+            # a float64 state (a test's) reduces in float64
+            self.grad_shard = self.grad_shard.to(grads.dtype)
         collectives.reduce_scatter_mean(self.grad_shard, grads)
         return self.grad_shard[:self.layout.total]
 

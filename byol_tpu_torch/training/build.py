@@ -1,12 +1,16 @@
 """Wiring: resolved config -> net, train state, steps (counterpart of
 byol_tpu/training/build.py), on this rank's device, laid out by the
-compile plan (parallel/compile_plan.py: the world, ZeRO-1)."""
+compile plan (parallel/compile_plan.py: the data axis, ZeRO-1).  Both
+backbone families take the remat policy; a names-based one is checked for
+its block_out tags by one dry forward (core/remat.py), as JAX's build
+traces its forward."""
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
 import torch
 
+from byol_tpu_torch.core import remat as remat_lib
 from byol_tpu_torch.core.config import ResolvedConfig
 from byol_tpu_torch.core.precision import get_policy
 from byol_tpu_torch.core.rng import split_named
@@ -26,13 +30,13 @@ def build_net(rcfg: ResolvedConfig,
     (default: the ``params`` stream of ``cfg.device.seed``).  Inputs of at
     most 64 px get the CIFAR stem, as in the JAX package."""
     cfg = rcfg.cfg
+    extra = {"remat": cfg.model.remat, "remat_policy": cfg.model.remat_policy}
     if get_spec(cfg.model.arch).has_batchnorm:
-        extra = {"small_inputs": rcfg.input_shape[0] <= 64,
-                 "zero_init_residual": cfg.parity.zero_init_residual,
-                 "stem": cfg.model.stem}
+        extra.update(small_inputs=rcfg.input_shape[0] <= 64,
+                     zero_init_residual=cfg.parity.zero_init_residual,
+                     stem=cfg.model.stem)
     else:                                        # ViT-family knobs
-        extra = {"attn_impl": cfg.model.attn_impl,
-                 "pooling": cfg.model.pooling}
+        extra.update(attn_impl=cfg.model.attn_impl, pooling=cfg.model.pooling)
     if generator is None:
         generator = split_named(cfg.device.seed, ("params",))["params"]
     return build_byol_net(
@@ -101,6 +105,28 @@ def step_config(rcfg: ResolvedConfig) -> StepConfig:
         check_numerics=cfg.device.check_numerics)
 
 
+def validate_remat_tags(net: BYOLNet, rcfg: ResolvedConfig, device,
+                        batch: int = 2) -> None:
+    """A names-based remat policy must see a block_out tag in the
+    backbone's forward, or :class:`~byol_tpu_torch.core.remat.RematTagError`
+    (one dry forward without autograd, in eval mode: no statistic
+    moves)."""
+    cfg = rcfg.cfg
+    policy_name = remat_lib.resolve_policy_name(cfg.model.remat,
+                                                cfg.model.remat_policy)
+    if policy_name not in remat_lib.NAMES_BASED_POLICIES:
+        return
+    was_training = net.backbone.training
+    net.backbone.eval()
+    try:
+        remat_lib.assert_tags_in_forward(
+            net.backbone, torch.zeros((batch,) + tuple(rcfg.input_shape),
+                                      device=device),
+            policy_name=policy_name)
+    finally:
+        net.backbone.train(was_training)
+
+
 def setup_training(rcfg: ResolvedConfig, device,
                    generator: Optional[torch.Generator] = None,
                    plan: Optional[CompilePlan] = None
@@ -121,6 +147,7 @@ def setup_training(rcfg: ResolvedConfig, device,
             net, split_named(cfg.device.seed, ("weight_init",))["weight_init"],
             cfg.model.weight_initialization)
     net = net.to(device)
+    validate_remat_tags(net, rcfg, device)
     plan = plan if plan is not None else CompilePlan()
     state = create_train_state(net, ema_init_mode=cfg.parity.ema_init_mode,
                                polyak_ema=cfg.regularizer.polyak_ema,

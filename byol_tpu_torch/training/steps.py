@@ -61,18 +61,23 @@ the non-finite count of gradient and loss, and the loss.  With
 keys.
 
 Data parallel (parallel/): inside a process group every rank runs this
-step on its rows of the global batch (``L = global / world``), and the
+step on its data rank's rows of the global batch (``L = global / D`` for
+the mesh's data axis of D; the ranks of a sequence group hold the same
+rows and share the step's work only inside ring attention), and the
 step computes what the JAX package's GSPMD step computes on the global
-batch, where every mean over the batch is a global mean:
+batch, where every mean over the batch is a global mean over the data
+axis (never the world, which would count a sequence group's rows N
+times):
 
-- BatchNorm statistics span the ranks at world > 1
+- BatchNorm statistics span the data ranks at D > 1
   (models/layers.py::BatchNorm), and so do the reference loss's
   Frobenius norms (objectives/byol_loss.py), both differentiably;
 - under step placement each rank draws for the GLOBAL microbatch and
-  keeps its rows, so its views are the rows JAX makes at the same global
-  positions (rank r's strided microbatch i is block r of the global
-  microbatch i, given ``L % k == 0``);
-- ONE all-reduce (mean) of the flat gradient buffer per optimizer step,
+  keeps its data rank's rows, so its views are the rows JAX makes at the
+  same global positions (data rank d's strided microbatch i is block d
+  of the global microbatch i, given ``L % k == 0``);
+- ONE all-reduce (mean over the data axis) of the flat gradient buffer
+  per optimizer step,
   after the last microbatch's backward (not DDP: the gradients already
   sit in one flat buffer), or under ZeRO-1 its reduce-scatter and the
   sharded update (parallel/zero1.py);
@@ -94,7 +99,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
-from byol_tpu_torch.core.precision import FP32, Policy
+from byol_tpu_torch.core.precision import FP32, Policy, at_least_fp32
 from byol_tpu_torch.data import device_augment
 from byol_tpu_torch.objectives.byol_loss import loss_function
 from byol_tpu_torch.objectives.metrics import cross_entropy, topk_accuracy
@@ -402,7 +407,7 @@ def make_train_step(tx: Chain, scfg: StepConfig,
             with torch.no_grad():
                 names = sorted(metrics)
                 vec = collectives.psum_(torch.stack(
-                    [metrics[n].float().reshape(()) for n in names]))
+                    [at_least_fp32(metrics[n]).reshape(()) for n in names]))
                 metrics = dict(zip(names, (vec / world).unbind()))
         with torch.no_grad():
             lr = lr_schedule(state.count)

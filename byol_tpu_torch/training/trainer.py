@@ -33,8 +33,11 @@ The metrics stay on the device during an epoch and are read back once at
 its end, after a synchronise, so the step time is the device's as well as
 the host's.
 
-Data parallel, as the JAX trainer runs a multi-host mesh: the data axis is
-the world size (``num_replicas``); the compile plan
+Data parallel, as the JAX trainer runs a multi-host mesh: the world is
+laid out as (data, sequence, model) (parallel/mesh.py::init_mesh), the
+data axis (``num_replicas``) is world / (sequence x model), and the ranks
+of one sequence group hold the same rows and run ring attention across
+them; the compile plan
 (parallel/compile_plan.py) lays out the state (ZeRO-1) and names itself in
 the run header; rank 0 alone prints, logs, graphs and writes checkpoints,
 every rank restores, and the ranks meet at a barrier around each write;
@@ -216,13 +219,16 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
     ran.  ``grapher`` defaults to ``cfg.task.grapher`` under
     ``log_dir/<run name>``.  Inside a process group every rank calls it
     (parallel/mesh.py::initialize_distributed first)."""
-    # the data axis is the world (the JAX trainer sizes it to the devices
-    # it finds)
+    # the mesh (data, sequence, model) over the world, as the JAX trainer
+    # lays out the devices it finds: the data axis is what the sequence
+    # and model axes leave
     world = mesh.world_size()
+    shape = mesh.init_mesh(cfg.device.sequence_parallel,
+                           cfg.device.model_parallel)
     primary = mesh.is_primary()
     verbose = verbose and primary
-    cfg = cfg.replace(device=dataclasses.replace(cfg.device,
-                                                 num_replicas=world))
+    cfg = cfg.replace(device=dataclasses.replace(
+        cfg.device, num_replicas=shape[mesh.DATA_AXIS]))
     if loader is None:
         loader = get_loader(cfg, device=device)
     rcfg = resolve(cfg, num_train_samples=loader.num_train_samples,
@@ -248,7 +254,7 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
         max_early_stop_steps=10)
     # best effort: an unopenable log directory or a full disk disables the
     # log with a warning, never the run
-    plan = plan_from_cfg(cfg, world)
+    plan = plan_from_cfg(cfg, cfg.device.num_replicas)
     events = RunLog(os.path.join(log_dir, "run.jsonl") if primary else None,
                     best_effort=True)
     events.emit("run_header", config=cfg.to_dict(), **run_header_env(device),
@@ -281,9 +287,11 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
     recorder, events, sink = obs.recorder, obs.events, obs.sink
     watchdog, grapher, timer = obs.watchdog, obs.grapher, obs.timer
     plan = obs.plan
+    # the data axis's (d, D): eval batches are dealt over it, and the
+    # ranks of a sequence group see the same ones
     rank, world = mesh.process_info()
     grouped = mesh.is_initialized()
-    primary = rank == 0
+    primary = mesh.is_primary()
     with recorder.span("startup/build"):
         _, state, train_step, eval_step, schedule = setup_training(
             rcfg, device, plan=plan)
@@ -303,7 +311,10 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
                   f"{rcfg.global_batch_size}", flush=True)
         if grouped:
             print(f"data parallel: {world} ranks of "
-                  f"{rcfg.batch_size_per_replica} rows, zero1="
+                  f"{rcfg.batch_size_per_replica} rows"
+                  + (f", sequence groups of {cfg.device.sequence_parallel}"
+                     if cfg.device.sequence_parallel > 1 else "")
+                  + ", zero1="
                   f"{cfg.device.zero1}, flat_resident="
                   f"{cfg.device.flat_resident}", flush=True)
     batch_size = rcfg.global_batch_size

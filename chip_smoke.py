@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive byol_tpu_torch's serving (in process and over the wire),
-training, input, accumulation, observability, linear-eval, data-parallel
-and optimizer-registry paths once on one CUDA card, and check them.
+training, input, accumulation, observability, linear-eval, data-parallel,
+optimizer-registry and ViT-training paths once on one CUDA card, and
+check them.
 
     python3 chip_smoke.py            # from the repository root; one card
 
@@ -109,9 +110,9 @@ Phases (any failure raises, and the script exits nonzero):
    with view1 != view2 in every row and both in [0, 1], the valid loss
    once an epoch.  Then 4 timed steps of each backend (tf and native at
    2 and 6 workers) beside the step placement's K2 path, fed by
-   ``prefetch_to_device`` as the trainer is, in turns, and a
-   torch.profiler breakdown of 3 more steps of each in its second turn
-   (images/s, device-busy
+   ``prefetch_to_device`` as the trainer is, one turn each, and a
+   torch.profiler breakdown of 3 more steps of each on that turn's
+   pipeline (images/s, device-busy
    share, starved steps, H2D MiB per step); then ``--task image_folder``
    on a tree of 2 classes x 64 JPEGs at 256 px written with PIL (2 steps
    under ``native``, and 2 under ``tf`` where the library has libjpeg;
@@ -121,20 +122,20 @@ Phases (any failure raises, and the script exits nonzero):
    fake --arch resnet50 --image-size-override 224 --batch-size 4096
    --accum-steps k --accum-bn-mode average --augment-placement step
    --fused-augment on --fused-update on --polyak-ema 0.99 --epochs 1``
-   over 8192 fake images (2 optimizer steps; eval on the Polyak params),
+   over 4096 fake images (1 optimizer step; eval on the Polyak params),
    through the CLI's config and the trainer, counters set to 0 before and
    read after: every loss finite, K1a = K1b = 1 and K2 = k launches per
    optimizer step.  k = 16 (microbatch 256), or 32 if one k = 1 step of
    256 peaks above 75 GB.  Then the peak memory of a k-step on the batch
    of 4096 against a k = 1 step on one microbatch (at most that plus the
-   rest of the uint8 batch and 1 GiB), wall ms per optimizer step over 2
-   steps, images/s, device-busy ms of 1 profiled step; and at effective
+   rest of the uint8 batch and 1 GiB), wall ms of 1 optimizer step,
+   images/s, device-busy ms of 1 profiled step; and at effective
    256 = 4 x 64 on one set of views: ``global`` against one k = 1 step in
    loss (bf16 3e-2), ``average`` against ``microbatch`` in the mean
    gradient (rtol 1e-5, cuDNN deterministic);
 9. observe — the slice's main path: the accum command with ``--telemetry
    step --telemetry-interval 1 --nan-policy halt --spans on --grapher
-   jsonl`` and a temporary ``--log-dir`` (2 optimizer steps of 4096 = k x
+   jsonl`` and a temporary ``--log-dir`` (1 optimizer step of 4096 = k x
    256), counters set to 0 before and read after: K1a = K1b = 1 and K2 = k
    launches per step; its run.jsonl read back with the port's strict
    reader must hold run_header, a step record per step, epoch, goodput,
@@ -143,11 +144,11 @@ Phases (any failure raises, and the script exits nonzero):
    the vector K1a's wrapper returned on that step; every goodput window's
    buckets sum to its wall within 1 %; the productive share and buckets,
    FLOPs per sample (FlopCounterMode over the first step) and MFU are
-   printed.  Then the cost of telemetry: at 4096, wall ms over 2 steps
+   printed.  Then the cost of telemetry: at 4096, wall ms of 1 step
    and device-busy ms of 1 profiled step with telemetry 'step' at
    interval 1, beside the accum phase's numbers, and the health vector
    alone; at batch 64 (the training phase's config) off, epoch, step at
-   interval 1 and at 50, 10 steps each in turns and 3 profiled.  Last
+   interval 1 and at 50, 5 steps each in turns and 3 profiled.  Last
    ``--nan-policy halt`` at batch 64 under loader placement (fp32 views
    made on the card): a NaN in view1 row 0 of step 2's batch must raise
    NanHaltError for step 2 with ``halt``, ``state_dump`` and a goodput
@@ -207,15 +208,39 @@ Phases (any failure raises, and the script exits nonzero):
    --nproc_per_node 1 ... --optimizer lamb --zero1 on --flat-resident
    on`` exits 0 and its checkpoint restores bitwise into a one-card
    ``--zero1 off`` lamb state, which then takes a step;
-13. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
+13. vit — ViT-B/16 BYOL training (width 768, 12 blocks, 12 heads, patch
+   16, 224 px, bf16 over fp32 state, random weights from the seed):
+   ``--task fake --arch vit_b16 --image-size-override 224 --batch-size 64
+   --epochs 1 --augment-placement step --fused-augment on --fused-update
+   on`` over 192 fake images (3 steps), through the CLI's config and the
+   trainer, three times: dense attention with cls pooling, ``--attn-impl
+   ring --pooling gap`` (the ring at sequence 1: one step of its online
+   softmax), and ``--remat-policy dots``; counters set to 0 before and
+   read after each run: every loss finite, K2 = K1a = K1b = 3; per run
+   the wall ms of 3 more steps, images/s, the device-busy ms of one
+   profiled step and the fit's peak memory.  Then, from the seeded state
+   and one batch, ring against dense on a first step (gap, bf16 3e-2),
+   and dots against none on a first step under deterministic cuDNN and
+   cuBLAS: loss and gradients bitwise, or within 1e-6 relative, with the
+   contractions the SAC policy saw.  K1a and K1b at the ViT-B/16 BYOL
+   layout against their plain versions (rtol 1e-5, atol 1e-6), graph ms
+   beside their bounds and ``_foreach_norm``.  Last, each of the seven
+   remat policies' one step (k = 1) of ResNet-50 at 256 and of ViT-B/16
+   at 256 (128 if a none step of 256 peaks above 75 GB), from one state
+   per architecture restored between policies: peak memory, busy ms, the
+   running statistics bitwise equal to none's, the host bytes that
+   ``offload_block_out`` moved.  Sequence > 1 needs a card per rank, so
+   it is not run here (its CPU tests run it over gloo);
+14. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
    ``{"observe": ...}``, ``{"serving_graph_vs_eager": ..., "wire": ...,
    "linear_eval": ...}``, ``{"ddp": ...}``, ``{"optim": ...}`` and
-   ``{"kernels": [...]}`` lines (launches on this slice's main path — the
-   split K1a's entries in the optim phase's chains; K1a, K1b and K2 in
-   the ddp phase's runs over NCCL; K3's over the wire, from graph
-   replays, where it last ran — and per path; the library yardstick of
-   K1a and its split is ``torch._foreach_norm`` over the leaves of p and
-   g), then, last, the ``{"ok": true, "device": ...}`` line.
+   ``{"vit": ...}`` lines, each phase's seconds, and the ``{"kernels":
+   [...]}`` line (launches on this slice's main path — K1a, K1b and K2 in
+   the vit phase's three runs; the split K1a's entries in the optim
+   phase's chains; K3's over the wire, from graph replays, where it last
+   ran — and per path; the library yardstick of K1a and its split is
+   ``torch._foreach_norm`` over the leaves of p and g), then, last, the
+   ``{"ok": true, "device": ...}`` line.
 """
 import json
 import math
@@ -564,15 +589,20 @@ def _kind(kernel_name):
     return "other"
 
 
-def _device_profile(run, iters, card, what, top=10):
+def _device_profile(run, iters, card, what, top=10, host=True):
     """Device ms per kernel kind of ``iters`` calls of ``run`` under
-    torch.profiler (its own overhead is in the wall time it prints)."""
+    torch.profiler (its own overhead is in the wall time it prints).
+    ``host=False`` traces the card alone (no host operators, whose events
+    cost the trace's processing seconds a step): the busy ms and kinds are
+    the same sums, and the host's launch time is not measured (None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_profile = time.perf_counter()
+    activities = ([ProfilerActivity.CPU] if host else []) + [
+        ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             run()
@@ -594,11 +624,18 @@ def _device_profile(run, iters, card, what, top=10):
             # the host's time inside the CUDA launch API calls
             launch_api_ms += evt.self_cpu_time_total / 1e3 / iters
     busy = sum(kinds.values())
+    if busy <= 0:
+        raise AssertionError(f"profile: {what}: the trace holds no device "
+                             "time")
+    if not host:
+        launch_api_ms = None
     print(f"profile: {what}: wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms ({busy / wall_ms:.1%}) in {launches / iters:.0f} "
-          f"kernels and copies, host in launch calls {launch_api_ms:.3f} "
-          f"ms; device ms by kind "
-          f"{ {k: round(v, 4) for k, v in sorted(kinds.items())} } [{card}]",
+          f"kernels and copies, host in launch calls "
+          + (f"{launch_api_ms:.3f} ms" if host else "not traced")
+          + f"; device ms by kind "
+          f"{ {k: round(v, 4) for k, v in sorted(kinds.items())} }; the "
+          f"profile took {time.perf_counter() - t_profile:.1f} s [{card}]",
           flush=True)
     for ms, name in sorted(ranked, reverse=True)[:top]:
         print(f"profile:   {ms:.4f} ms  {name[:100]}", flush=True)
@@ -1327,10 +1364,10 @@ def _input_run(name, extra, model_dir, samples=INPUT_SAMPLES,
 def _input_arms(card, model_dir):
     """Steps of ResNet-50 at batch 64 with each backend making the views
     (through prefetch_to_device, the trainer's feed) beside the step
-    placement's K2 path: INPUT_TIMED timed steps per arm, in turns, and a
-    torch.profiler breakdown of 3 more steps of each in its second turn
-    (on the pipeline that turn started: a spawned worker pool takes ~14
-    s to fill)."""
+    placement's K2 path: INPUT_TIMED timed steps per arm, one turn each,
+    and a torch.profiler breakdown of 3 more steps on the pipeline that
+    turn started (a spawned worker pool takes ~14 s to fill, so each turn
+    pays for one)."""
     import dataclasses
 
     import torch
@@ -1400,15 +1437,13 @@ def _input_arms(card, model_dir):
                 profiles[name] = _device_profile(
                     lambda: step(state, next(batches)), 3, card,
                     f"input arm {name}, resnet50 train step at batch 64, "
-                    f"per step", top=0)
+                    f"per step", top=0, host=False)
             return (ms, meter.starved_steps - starved,
                     meter.wait_seconds - waited, meter.h2d_bytes_per_step())
         finally:
             batches.close()
 
-    turns = {name: [] for name in arms}
-    for name in list(arms) + list(arms)[::-1]:
-        turns[name].append(timed(name, profile=bool(turns[name])))
+    turns = {name: [timed(name, profile=True)] for name in arms}
     rows = {}
     for name in arms:
         workers = feeds[name][2]
@@ -1420,9 +1455,9 @@ def _input_arms(card, model_dir):
             starved=[t[1] for t in turns[name]],
             waited_ms=[round(t[2] * 1e3, 1) for t in turns[name]],
             workers=workers)
-        print(f"input: arm {name}: {ms[0]:.3f} / {ms[1]:.3f} ms per step = "
-              f"{rows[name]['img_s']:.1f} img/s at best, {INPUT_TIMED} "
-              f"steps each turn; starved steps {rows[name]['starved']} of "
+        print(f"input: arm {name}: {ms[0]:.3f} ms per step = "
+              f"{rows[name]['img_s']:.1f} img/s, {INPUT_TIMED} timed "
+              f"steps; starved steps {rows[name]['starved']} of "
               f"{INPUT_TIMED}, waited {rows[name]['waited_ms']} ms; h2d "
               f"{rows[name]['h2d_mib']:.2f} MiB/step; profiled 3 steps: "
               f"device busy {prof['busy_ms']:.3f} of {prof['wall_ms']:.3f} "
@@ -1521,7 +1556,8 @@ ACCUM_ARGV = ["--task", "fake", "--arch", "resnet50",
               "--fused-augment", "on", "--fused-update", "on",
               "--polyak-ema", "0.99", "--epochs", "1"]
 ACCUM_BATCH = 4096                 # the recipe's batch
-ACCUM_SAMPLES = 8192               # fake images: 2 optimizer steps
+ACCUM_SAMPLES = 4096               # fake images: 1 optimizer step
+ACCUM_STEPS = ACCUM_SAMPLES // 4096
 ACCUM_MICRO = (256, 128)           # microbatch, and the fallback over 75 GB
 ACCUM_MEMORY_LIMIT = 75e9          # bytes a step may peak at on the card
 ACCUM_SLACK = 2**30                # peak of k steps over one: + the batch
@@ -1674,7 +1710,8 @@ def run_accum(card):
           f"{result.test_metrics['loss_mean']:.4f} (Polyak params), launches "
           f"(flash, segment_norms, fused_apply, two_view) = {counts}, peak "
           f"{fit_peak / 1e9:.2f} GB [{card}]", flush=True)
-    if steps != 2 or not all(map(math.isfinite, result.step_losses + [
+    if steps != ACCUM_STEPS or not all(map(math.isfinite,
+                                           result.step_losses + [
             result.test_metrics["loss_mean"]])):
         raise AssertionError(f"accum: {steps} steps, losses "
                              f"{result.step_losses}")
@@ -1713,16 +1750,18 @@ def run_accum(card):
         raise AssertionError("accum: a k-step holds more than one "
                              "microbatch's graph")
 
-    # wall ms per optimizer step (2 steps) and device-busy ms (1 profiled)
+    # wall ms of an optimizer step (1 step: ~5 s of device work dwarfs the
+    # host's jitter) and device-busy ms (1 profiled)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(2):
-        accum_step(state, big)
+    accum_step(state, big)
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # the card alone: a host trace of 16 microbatches' operators takes
+    # ~45 s to process
     prof = _device_profile(lambda: accum_step(state, big), 1, card,
                            f"resnet50 optimizer step of {ACCUM_BATCH} = {k} "
-                           f"x {micro}, per step")
+                           f"x {micro}, per step", host=False)
     row = {"microbatch": micro, "k": k, "wall_ms": wall_ms,
            "img_per_s": ACCUM_BATCH / wall_ms * 1e3,
            "busy_ms": prof["busy_ms"], "profiled_wall_ms": prof["wall_ms"],
@@ -1730,7 +1769,7 @@ def run_accum(card):
            "peak_k_bytes": peak_k, "peak_1_bytes": peak_1,
            "fit_peak_bytes": fit_peak}
     print(f"accum: optimizer step of {ACCUM_BATCH} = {k} x {micro}: wall "
-          f"{wall_ms:.1f} ms ({row['img_per_s']:.1f} img/s, 2 steps), device "
+          f"{wall_ms:.1f} ms ({row['img_per_s']:.1f} img/s, 1 step), device "
           f"busy {prof['busy_ms']:.1f} ms of a profiled {prof['wall_ms']:.1f} "
           f"ms ({row['busy_share']:.1%}) [{card}]", flush=True)
 
@@ -1766,7 +1805,7 @@ HALT_ARGV = ["--task", "fake", "--arch", "resnet50", "--image-size-override",
              "224", "--batch-size", "64", "--epochs", "1", "--fused-update",
              "on", "--data-backend", "device"] + OBSERVE_ARGV
 HALT_AT = 2                        # the optimizer step fed the NaN batch
-OBSERVE_64 = 10                    # timed steps per telemetry arm at 64
+OBSERVE_64 = 5                     # timed steps per telemetry arm at 64
 
 
 def _observe_main(card, micro, root):
@@ -1820,10 +1859,10 @@ def _observe_main(card, micro, root):
           f"(flash, segment_norms, fused_apply, two_view) = {counts}; "
           f"run.jsonl kinds { {n: kinds.count(n) for n in sorted(set(kinds))} }"
           f" [{card}]", flush=True)
-    if steps != 2 or counts != (0, steps, steps, k * steps):
+    if steps != ACCUM_STEPS or counts != (0, steps, steps, k * steps):
         raise AssertionError(f"observe: {steps} steps, launches {counts}")
     need = ("run_header", "epoch", "goodput", "span_stats", "run_end")
-    if kinds.count("step") < 2 or not all(n in kinds for n in need) or \
+    if kinds.count("step") < steps or not all(n in kinds for n in need) or \
             (kinds[0], kinds[-1]) != ("run_header", "run_end"):
         raise AssertionError(f"observe: run.jsonl kinds {kinds}")
 
@@ -1882,7 +1921,7 @@ def _observe_main(card, micro, root):
 
 
 def _telemetry_cost_4096(card, state, host, cfg, accum_row, row):
-    """(b) at 4096: wall ms per optimizer step over 2 steps and device-busy
+    """(b) at 4096: wall ms of 1 optimizer step and device-busy
     ms of 1 profiled step with telemetry 'step' at interval 1 (the offer
     in the loop), beside the accum phase's numbers with it off; and the
     health vector alone."""
@@ -1911,14 +1950,14 @@ def _telemetry_cost_4096(card, state, host, cfg, accum_row, row):
         sink.offer(state.step + 1, step(state, big)["health"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(2):
-        observed()
+    observed()
     torch.cuda.synchronize()
     sink.drain()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    wall_ms = (time.perf_counter() - t0) * 1e3
     prof = _device_profile(observed, 1, card,
                            f"resnet50 optimizer step of {ACCUM_BATCH} with "
-                           "telemetry step, interval 1, per step", top=0)
+                           "telemetry step, interval 1, per step", top=0,
+                           host=False)
     sink.drain()
     # the health vector alone on this state's buffers (eager, CUDA events)
     trust = torch.ones(sum(state.seg.adapted), device="cuda")
@@ -1943,7 +1982,7 @@ def _telemetry_cost_4096(card, state, host, cfg, accum_row, row):
           f"{flops.chip_peak_tflops()} TFLOP/s dense BF16) [{card}]",
           flush=True)
     print(f"observe: telemetry cost at {ACCUM_BATCH}: wall {wall_ms:.1f} "
-          f"ms/step (2 steps) vs {accum_row['wall_ms']:.1f} off (the accum "
+          f"ms/step (1 step) vs {accum_row['wall_ms']:.1f} off (the accum "
           f"phase), device busy {prof['busy_ms']:.1f} vs "
           f"{accum_row['busy_ms']:.1f} ms (1 profiled step each: "
           f"{prof['busy_ms'] - accum_row['busy_ms']:+.1f} ms); the health "
@@ -3237,7 +3276,8 @@ def _optim_chain_runs(card, batches):
         losses = [float(step(state, batches[0])["loss_mean"])]
         prof = _device_profile(lambda: losses.append(float(step(
             state, batches[1])["loss_mean"])), 1, card,
-            f"optim {name} clip {clip}, resnet50 batch 64 step", top=0)
+            f"optim {name} clip {clip}, resnet50 batch 64 step", top=0,
+            host=False)
         losses.append(float(step(state, batches[2])["loss_mean"]))
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
@@ -3432,6 +3472,382 @@ def run_optim(card):
                     "seconds": parts}
 
 
+VIT_ARGV = ["--task", "fake", "--arch", "vit_b16", "--image-size-override",
+            "224", "--batch-size", "64", "--epochs", "1",
+            "--augment-placement", "step", "--fused-augment", "on",
+            "--fused-update", "on"]
+VIT_STEPS = 3                      # 192 fake images at batch 64
+VIT_SIZE = 224
+# the phase's three runs of the slice's command: name -> extra flags
+VIT_RUNS = {
+    "dense, cls": [],
+    "ring at sequence 1, gap": ["--attn-impl", "ring", "--pooling", "gap"],
+    "dense, cls, dots": ["--remat-policy", "dots"],
+}
+# the remat table: arch -> (argv, microbatches to try in order)
+REMAT_ARCHS = {
+    "resnet50": (ACCUM_ARGV[:ACCUM_ARGV.index("--batch-size")] + [
+        "--augment-placement", "step", "--fused-augment", "on",
+        "--fused-update", "on", "--epochs", "1"], (256,)),
+    "vit_b16": (VIT_ARGV[:VIT_ARGV.index("--batch-size")] + [
+        "--augment-placement", "step", "--fused-augment", "on",
+        "--fused-update", "on", "--epochs", "1"], ACCUM_MICRO),
+}
+
+
+def _vit_config(extra, root, batch=None):
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    argv = list(extra) + ["--model-dir", root, "--log-dir",
+                          os.path.join(root, "logs")]
+    if batch is not None:
+        argv += ["--batch-size", str(batch)]
+    return config_from_args(build_parser().parse_args(argv))
+
+
+def _vit_rcfg(cfg, samples):
+    import dataclasses
+    from byol_tpu_torch.core.config import resolve
+    return resolve(cfg.replace(device=dataclasses.replace(
+        cfg.device, num_replicas=1)), num_train_samples=samples,
+        num_test_samples=64, output_size=10,
+        input_shape=(VIT_SIZE, VIT_SIZE, 3))
+
+
+def _vit_batch(rows, seed=21):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"images": torch.randint(0, 256, (rows, VIT_SIZE, VIT_SIZE, 3),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.uint8),
+            "label": torch.randint(0, 10, (rows,), generator=gen,
+                                   device="cuda", dtype=torch.int32)}
+
+
+def _vit_fit(card, name, extra, root):
+    """One run of the slice's command through the CLI's config and the
+    trainer, counters set to 0 before and read after; then 1 + 3 timed
+    steps and one profiled step on its trained state."""
+    import dataclasses
+
+    import torch
+    from byol_tpu_torch.core.precision import get_policy
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.training.build import build_tx, step_config
+    from byol_tpu_torch.training.steps import make_train_step
+    from byol_tpu_torch.training.trainer import fit
+    cfg = _vit_config(VIT_ARGV + extra, os.path.join(root, name.replace(
+        " ", "_").replace(",", "")))
+    batch_size = cfg.task.batch_size
+    loader = get_loader(cfg.replace(device=dataclasses.replace(
+        cfg.device, num_replicas=1)),
+        num_fake_samples=batch_size * VIT_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _zero_counters()
+    result = fit(cfg, device=torch.device("cuda"), loader=loader)
+    counts = _read_counters()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(result.step_losses)
+    print(f"vit: {name}: {steps} steps in {fit_s:.1f}s (build and eval "
+          f"included), losses {result.step_losses}, test loss "
+          f"{result.test_metrics['loss_mean']:.4f}, launches (flash, "
+          f"segment_norms, fused_apply, two_view) = {counts}, peak "
+          f"{peak / 1e9:.2f} GB [{card}]", flush=True)
+    if steps != VIT_STEPS or not all(map(math.isfinite, result.step_losses
+                                         + [result.test_metrics[
+                                             "loss_mean"]])):
+        raise AssertionError(f"vit: {name}: {steps} steps, losses "
+                             f"{result.step_losses}")
+    if counts != (0, steps, steps, steps):
+        raise AssertionError(f"vit: {name}: launches {counts}, want (0, "
+                             f"{steps}, {steps}, {steps})")
+    state = result.state
+    rcfg = _vit_rcfg(cfg, batch_size * VIT_STEPS)
+    tx, schedule = build_tx(rcfg)
+    step = make_train_step(tx, step_config(rcfg), schedule,
+                           get_policy(cfg.device.half))
+    batch = _vit_batch(batch_size)
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    prof = _device_profile(lambda: step(state, batch), 1, card,
+                           f"vit_b16 train step, {name}, batch "
+                           f"{batch_size}, per step",
+                           top=8 if not extra else 0, host=False)
+    row = {"steps": steps, "losses": result.step_losses,
+           "launches": list(counts), "wall_ms": wall_ms,
+           "img_per_s": batch_size * 1e3 / wall_ms,
+           "busy_ms": prof["busy_ms"],
+           "peak_gb": peak / 1e9, "fit_s": fit_s}
+    print(f"vit: {name}: batch {batch_size} step wall {wall_ms:.2f} ms (3 "
+          f"steps, "
+          f"{row['img_per_s']:.1f} img/s), device busy "
+          f"{prof['busy_ms']:.2f} ms of a profiled step [{card}]",
+          flush=True)
+    del result, state, step
+    return counts, row
+
+
+def _set_attention(net, impl):
+    from byol_tpu_torch.models.vit import SelfAttention
+    from byol_tpu_torch.ops.attention import get_attention_fn
+    for m in net.modules():
+        if isinstance(m, SelfAttention):
+            m.attn_impl, m.attn_fn = impl, get_attention_fn(impl)
+
+
+def _vit_checks(card, root):
+    """ring against dense on one first step from the seeded state (gap
+    pooling, bf16 3e-2), and dots against none on one first step (dense,
+    cls) under deterministic cuDNN and cuBLAS: loss and gradients bitwise,
+    else the largest difference held to 1e-6 relative."""
+    import torch
+    from byol_tpu_torch.core import remat
+    from byol_tpu_torch.training.build import setup_training
+    from byol_tpu_torch.training.state import (canonical_state,
+                                               load_canonical)
+    out = {}
+    cfg = _vit_config(VIT_ARGV + VIT_RUNS["ring at sequence 1, gap"], root)
+    batch = _vit_batch(cfg.task.batch_size, seed=22)
+    samples = cfg.task.batch_size * VIT_STEPS
+    _, state, step, _, _ = setup_training(_vit_rcfg(cfg, samples), "cuda")
+    tree = canonical_state(state)
+    ring = float(step(state, batch)["loss_mean"])
+    load_canonical(state, tree)
+    for net in (state.net, state.target_net):
+        _set_attention(net, "dense")
+    dense = float(step(state, batch)["loss_mean"])
+    ok = abs(ring - dense) <= SLICE_TOL * (1 + abs(dense))
+    out["ring_vs_dense"] = {"ring": ring, "dense": dense,
+                            "diff": abs(ring - dense), "ok": ok}
+    print(f"vit: first step from the seed, ring at sequence 1 vs dense "
+          f"(gap): loss {ring:.6f} vs {dense:.6f}, ok={ok} (bf16 "
+          f"{SLICE_TOL}) [{card}]", flush=True)
+    del state, step, tree
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("vit: ring and dense disagree")
+
+    cfg = _vit_config(VIT_ARGV, root)
+    _, state, step, _, _ = setup_training(_vit_rcfg(cfg, samples), "cuda")
+    tree = canonical_state(state)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        none = float(step(state, batch)["loss_mean"])
+        g_none = state.grads.clone()
+        load_canonical(state, tree)
+        remat.set_remat_policy(state.net, "dots")
+        with remat.probe_ops() as seen:
+            dots = float(step(state, batch)["loss_mean"])
+        g_dots = state.grads.clone()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    bitwise = none == dots and torch.equal(g_none, g_dots)
+    rel = ((g_none - g_dots).abs().max()
+           / g_none.abs().max().clamp_min(1e-30)).item()
+    ok = bitwise or (rel <= 1e-6 and abs(none - dots) <= 1e-6 * abs(none))
+    ops = sorted(set(seen))
+    saved = sorted(o for o in ops if any(
+        d in o for d in ("convolution", ".mm.", "addmm", "bmm")))
+    out["dots_vs_none"] = {"loss_none": none, "loss_dots": dots,
+                           "bitwise": bitwise, "grad_max_rel_diff": rel,
+                           "ok": ok, "sac_contractions_seen": saved}
+    print(f"vit: first step, dots vs none under deterministic cuDNN/cuBLAS: "
+          f"loss {none!r} vs {dots!r}, gradients bitwise {bitwise} (largest "
+          f"relative difference {rel:.3e}), ok={ok}; the SAC policy saw "
+          f"{len(ops)} ops, contractions {saved} [{card}]", flush=True)
+    del state, step, tree, g_none, g_dots
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("vit: dots and none disagree")
+    return out
+
+
+def _remat_table(card, root):
+    """Each remat policy's one optimizer step (k = 1, K2 in the step) of
+    ResNet-50 at 256 and of ViT-B/16 at 256 (128 where a none step of 256
+    peaks above 75 GB), from one state per architecture, restored between
+    policies: peak memory, device-busy ms of the profiled step, the
+    running statistics bitwise against none's, the host bytes offloaded."""
+    import gc
+
+    import torch
+    from byol_tpu_torch.core import remat
+    from byol_tpu_torch.training.build import setup_training
+    from byol_tpu_torch.training.state import (canonical_state,
+                                               load_canonical)
+    table = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for arch, (argv, micros) in REMAT_ARCHS.items():
+            state = step = None
+            for micro in micros:
+                cfg = _vit_config(argv, root, batch=micro)
+                _, state, step, _, _ = setup_training(
+                    _vit_rcfg(cfg, micro), "cuda")
+                tree = canonical_state(state)
+                batch = _vit_batch(micro, seed=23)
+                try:
+                    peak = _peak_bytes(lambda: step(state, batch))
+                except torch.cuda.OutOfMemoryError:
+                    peak = float("inf")
+                load_canonical(state, tree)
+                if peak <= ACCUM_MEMORY_LIMIT or micro == micros[-1]:
+                    break
+                print(f"remat: {arch}: a none step of {micro} peaks at "
+                      f"{peak / 1e9:.2f} GB (> {ACCUM_MEMORY_LIMIT / 1e9:.0f}"
+                      f" GB): next microbatch", flush=True)
+                del state, step, tree, batch
+                gc.collect()
+                torch.cuda.empty_cache()
+            rows, base = {}, None
+            for policy in remat.POLICY_NAMES:
+                load_canonical(state, tree)
+                remat.set_remat_policy(state.net, policy)
+                remat.offload_stats(reset=True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                prof = _device_profile(
+                    lambda: step(state, batch), 1, card,
+                    f"{arch} step of {micro} under remat {policy}", top=0,
+                    host=False)
+                peak = torch.cuda.max_memory_allocated()
+                stats = {k: v.clone() for k, v in
+                         state.batch_stats().items()}
+                base = stats if base is None else base
+                equal = all(torch.equal(stats[k], base[k]) for k in base)
+                rows[policy] = {
+                    "peak_gb": peak / 1e9, "busy_ms": prof["busy_ms"],
+                    "wall_ms": prof["wall_ms"], "stats_equal_none": equal,
+                    "host_bytes": remat.offload_stats()["bytes"]}
+                print(f"remat: {arch} at {micro}, {policy}: peak "
+                      f"{peak / 1e9:.2f} GB, busy {prof['busy_ms']:.2f} ms, "
+                      f"running statistics == none's: {equal}, offloaded "
+                      f"{rows[policy]['host_bytes'] / 1e9:.3f} GB [{card}]",
+                      flush=True)
+                if not equal:
+                    raise AssertionError(f"remat: {arch} {policy}: the "
+                                         "running statistics moved")
+            remat.set_remat_policy(state.net, "none")
+            table[arch] = {"microbatch": micro, "policies": rows}
+            del state, step, tree, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return table
+
+
+def _vit_update_rows(card):
+    """K1a and K1b at the ViT-B/16 BYOL layout (heads 4096/256, 10
+    classes), against their plain versions, graph-timed beside their
+    bounds and ``torch._foreach_norm``."""
+    import torch
+    from byol_tpu_torch.models.byol_net import BYOLNet
+    from byol_tpu_torch.models.registry import get_backbone
+    from byol_tpu_torch.ops import fused_update as fu
+    from byol_tpu_torch.training.state import tree_order
+    backbone, _ = get_backbone("vit_b16")
+    params = dict(BYOLNet(backbone, num_classes=10).named_parameters())
+    names = tree_order(params)
+    leaves = [params[n] for n in names]
+    seg = fu.segment_map_for(leaves)
+    shapes = [p.shape for p in leaves]
+    del backbone, params, leaves
+    layout = fu.FusedLayout.build(seg, 1e-6, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p, g, m, t = (torch.randn(seg.total, device="cuda", generator=gen) * k
+                  for k in (0.05, 1e-3, 1e-3, 0.05))
+    scale, norms = fu.segment_norms(p, g, layout)
+    ref_scale, ref_norms = fu.segment_norms_reference(p, g, layout)
+    err_a = max((scale - ref_scale).abs().max().item(),
+                (norms - ref_norms).abs().max().item())
+    ok_a = (torch.allclose(scale, ref_scale, **K1_TOL)
+            and torch.allclose(norms, ref_norms, **K1_TOL))
+    kw = dict(lr=1e-4, tau=0.99, momentum_decay=0.9, ema_pre=False)
+    got = [x.clone() for x in (p, m, t)]
+    want = [x.clone() for x in (p, m, t)]
+    fu.fused_apply(got[0], g, got[1], got[2], ref_scale, layout, **kw)
+    fu.fused_apply_reference(want[0], g, want[1], want[2], ref_scale, layout,
+                             **kw)
+    err_b = max((a - b).abs().max().item() for a, b in zip(got, want))
+    ok_b = all(torch.allclose(a, b, **K1_TOL) for a, b in zip(got, want))
+    norm_leaves = fu.unpack_flat(p, seg, shapes) + fu.unpack_flat(g, seg,
+                                                                  shapes)
+    rows = {
+        "segment_norms": dict(
+            ms=_device_ms(lambda: fu.segment_norms(p, g, layout)),
+            plain_ms=_device_ms(
+                lambda: fu.segment_norms_reference(p, g, layout)),
+            library_ms=_device_ms(lambda: torch._foreach_norm(norm_leaves)),
+            bound_ms=2 * 4 * seg.total / HBM_BYTES_PER_S * 1e3,
+            max_abs_err=err_a, ok=ok_a),
+        "fused_apply": dict(
+            ms=_device_ms(lambda: fu.fused_apply(
+                got[0], g, got[1], got[2], scale, layout, **kw)),
+            plain_ms=_device_ms(lambda: fu.fused_apply_reference(
+                want[0], g, want[1], want[2], scale, layout, **kw)),
+            library_ms=None,
+            bound_ms=7 * 4 * seg.total / HBM_BYTES_PER_S * 1e3,
+            max_abs_err=err_b, ok=ok_b),
+    }
+    for name, row in rows.items():
+        row.update(bound_by="bytes", elements=seg.total,
+                   rows=seg.total // fu.LANES, segments=seg.num_segments,
+                   real=sum(seg.sizes))
+        print(f"vit layout {name} {row} [{card}]", flush=True)
+    if not (ok_a and ok_b):
+        raise AssertionError("vit layout: K1a/K1b disagree with their "
+                             "plain versions")
+    return rows
+
+
+def run_vit(card):
+    """ViT-B/16 BYOL training (the slice's main path): the slice's command
+    three times (dense with cls pooling; ring at sequence 1 with gap
+    pooling; dense with ``--remat-policy dots``), each through the CLI's
+    config and the trainer with the counters set to 0 before and read
+    after (3 steps: K2 = K1a = K1b = 3); ring against dense and dots
+    against none on one first step; K1a and K1b at the ViT layout; the
+    seven remat policies' peak memory and busy ms for ResNet-50 and
+    ViT-B/16.  -> (counts per run, row)."""
+    import shutil
+    import tempfile
+
+    import torch
+    root = tempfile.mkdtemp(prefix="chip_smoke_vit_")
+    parts, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        parts[name] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+    counts, runs = {}, {}
+    try:
+        for name, extra in VIT_RUNS.items():
+            counts[name], runs[name] = _vit_fit(card, name, extra, root)
+            torch.cuda.empty_cache()
+        lap("runs")
+        checks = _vit_checks(card, root)
+        lap("checks")
+        update = _vit_update_rows(card)
+        lap("update kernels")
+        table = _remat_table(card, root)
+        lap("remat table")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"vit: seconds by part {parts}", flush=True)
+    return counts, {"runs": runs, **checks, "update_kernels": update,
+                    "remat": table, "seconds": parts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3446,6 +3862,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS reads its workspace setting when its handle is made: the vit
+    # phase's deterministic remat check needs the deterministic one
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     t0 = time.perf_counter()
     path = common.build()
@@ -3482,8 +3901,7 @@ def main() -> int:
     le_counts, le_row = phase("linear_eval", run_linear_eval, card)
     ddp_counts, ddp_rows, ddp_row = phase("ddp", run_ddp, card)
     optim_counts, optim_row = phase("optim", run_optim, card)
-    print(f"phases, s: {phases}; total since start "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    vit_counts, vit_row = phase("vit", run_vit, card)
 
     main_row = next(r for r in flash_rows
                     if r["shape"] == [64, HEADS, SEQ, 64]
@@ -3500,7 +3918,8 @@ def main() -> int:
             "wire (graph replays)": wire_launches,
             "serving (graph replays)": serving_launches,
             "linear_eval": le_counts[0], "observe": observe_counts[0],
-            "accum": accum_counts[0], "training": train_counts[0]},
+            "accum": accum_counts[0], "training": train_counts[0],
+            "vit": sum(c[0] for c in vit_counts.values())},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                            if r["dtype"] == "bfloat16"),
         "ms": main_row["ms"],
@@ -3512,8 +3931,11 @@ def main() -> int:
         "ok": all(r["ok"] for r in flash_rows),
     }]
 
-    # this slice's main path: the ddp phase's two runs over NCCL (zero1
-    # off, then on), each with the counters set to 0 before it
+    # this slice's main path: the vit phase's three runs of ViT-B/16, each
+    # with the counters set to 0 before it
+    vit = [sum(c[i] for c in vit_counts.values()) for i in range(4)]
+    vit_paths = {f"vit {name}": c for name, c in vit_counts.items()}
+    # the ddp phase's two runs over NCCL (zero1 off, then on)
     ddp = [a + b for a, b in zip(ddp_counts[("nccl", False)],
                                  ddp_counts[("nccl", True)])]
 
@@ -3524,7 +3946,9 @@ def main() -> int:
     def by_path(i, j):
         """A kernel's launches on each training path (and 0 on the served
         ones); ``j`` its index among the ddp phase's counters."""
-        paths = ddp_paths(j)
+        paths = {"vit": vit[i]}
+        paths.update({name: c[i] for name, c in vit_paths.items()})
+        paths.update(ddp_paths(j))
         paths.update({"linear_eval": le_counts[i], "wire": 0, "serving": 0,
                  "observe": observe_counts[i], "accum": accum_counts[i],
                  "training": train_counts[i],
@@ -3539,18 +3963,19 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "byol_tpu_torch/ops/csrc/fused_update.cu",
             "replaces": f"byol_tpu/ops/fused_update.py:{line}",
-            "launches": ddp[j], "launches_by_path": by_path(i, j),
+            "launches": vit[i], "launches_by_path": by_path(i, j),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "elements": row["elements"],
-            "ok": row["ok"]})
+            "vit_layout": vit_row["update_kernels"][name],
+            "ok": row["ok"] and vit_row["update_kernels"][name]["ok"]})
     k2 = k2_rows[0]                      # the training shape
     kernels.append({
         "name": "two_view", "route": "cuda",
         "source": "byol_tpu_torch/ops/csrc/fused_augment.cu",
         "replaces": "byol_tpu/ops/fused_augment.py:179",
-        "launches": ddp[2],
+        "launches": vit[3],
         "launches_by_path": dict(by_path(3, 2), optim=optim_counts[0]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
@@ -3578,6 +4003,9 @@ def main() -> int:
                       "linear_eval": le_row}), flush=True)
     print(json.dumps({"ddp": ddp_row}), flush=True)
     print(json.dumps({"optim": optim_row}), flush=True)
+    print(json.dumps({"vit": vit_row}), flush=True)
+    print(f"phases, s: {phases}; total since start "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -134,8 +134,8 @@ def test_launch_plan_covers_every_query_row_once(bh, s):
 def test_attention_registry():
     assert get_attention_fn("dense") is dense_attention
     assert get_attention_fn("flash") is fa.flash_attention
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_attention_fn("ring")
+    from byol_tpu_torch.parallel.ring_attention import ring_attention
+    assert get_attention_fn("ring") is ring_attention
     with pytest.raises(ValueError, match="unknown"):
         get_attention_fn("bogus")
 

@@ -34,8 +34,12 @@ def test_the_scan_sees_the_package():
 def test_the_scan_sees_the_parallel_modules():
     parallel = ROOT / "byol_tpu_torch" / "parallel"
     for name in ("mesh", "collectives", "lockstep", "zero1", "flat_state",
-                 "compile_plan"):
+                 "compile_plan", "ring_attention"):
         assert parallel / f"{name}.py" in FILES, name
+
+
+def test_the_scan_sees_the_remat_module():
+    assert ROOT / "byol_tpu_torch" / "core" / "remat.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES,

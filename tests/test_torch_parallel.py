@@ -196,8 +196,13 @@ def test_refusals_name_their_reasons():
     assert _resolve(unfused.replace(device=dataclasses.replace(
         cfg.device, zero1="on", flat_resident="on"))).cfg.optim.optimizer \
         == "lamb"
-    for flags in (["--model-parallel", "2"], ["--sequence-parallel", "2"],
-                  ["--remat"], ["--dcn-data-parallel", "2"]):
+    # the sequence axis and remat are ported; the TP heads and a DCN axis
+    # stay refused
+    for flags in (["--sequence-parallel", "2"], ["--remat"]):
+        parsed = config_from_args(build_parser().parse_args(
+            ["--batch-size", "16"] + flags))
+        assert _resolve(parsed).cfg == parsed
+    for flags in (["--model-parallel", "2"], ["--dcn-data-parallel", "2"]):
         parsed = config_from_args(build_parser().parse_args(
             ["--batch-size", "16"] + flags))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -230,8 +235,9 @@ def test_mesh_without_a_process_group_is_one_rank():
     x = torch.ones(3, requires_grad=True)
     assert collectives.psum(x) is x and collectives.all_gather(x) is x
     assert mesh.initialize_distributed("cpu") is False
-    with pytest.raises(NotImplementedError, match="item 14"):
-        collectives.ppermute_shift(x)
+    assert mesh.mesh_shape() == {"data": 1, "sequence": 1, "model": 1}
+    # the ring shift of a one-rank sequence axis is the identity
+    assert collectives.ppermute_shift(x) is x
     with pytest.raises(ValueError, match="not divisible"):
         mesh.shard_batch({"x": np.arange(7)}, 0, 2)
 

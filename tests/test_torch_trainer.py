@@ -63,6 +63,20 @@ def _assert_states_bitwise(a, b):
     assert (a.step, a.count, a.ema_step) == (b.step, b.count, b.ema_step)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Every fit of this file runs on one torch thread, restored after (a
+    module autouse fixture, so the module fixtures' fits see it too): the
+    tiny net gains nothing from more, and under a parallel test run every
+    extra OpenMP team oversubscribes the cores the other tests share."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def uninterrupted(tmp_path_factory):
     """Two epochs, eight steps, never interrupted."""
@@ -169,7 +183,7 @@ def test_cli_exits_143_on_sigterm(tmp_path):
            "--no-half", "--warmup", "0", "--head-latent-size", "32",
            "--projection-size", "16", "--model-dir", str(tmp_path / "m"),
            "--log-dir", str(tmp_path / "logs"), "--grapher", "jsonl"]
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env,
                             cwd=str(tmp_path))
     try:

@@ -84,6 +84,31 @@ def run_ranks(job: str, spec: Dict[str, Any], world: int, tmp_path: Path,
             for r in range(world)]
 
 
+def run_ranks_once(name: str, job: str, spec: Dict[str, Any], world: int,
+                   tmp_path_factory, **kw) -> List[Any]:
+    """:func:`run_ranks` once per test session.  Under pytest-xdist every
+    worker that runs a test of a module builds that module's fixtures, so
+    the first worker runs the ranks and saves their results beside the
+    workers' temp directories, and the others wait on a lock and read
+    them."""
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        return run_ranks(job, spec, world, tmp_path_factory.mktemp(name),
+                         **kw)
+    import fcntl
+    root = tmp_path_factory.getbasetemp().parent
+    done = root / f"{name}.pt"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not done.exists():
+                results = run_ranks(job, spec, world, root / name, **kw)
+                torch.save(results, root / f"{name}.partial")
+                os.replace(root / f"{name}.partial", done)
+            return torch.load(done, weights_only=False)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def tiny_net(dtype=torch.float32):
     from byol_tpu_torch.models import resnet as torch_resnet
     from byol_tpu_torch.models.byol_net import BYOLNet
@@ -114,19 +139,33 @@ def seeded_tree(optimizer="lars_momentum", dtype=torch.float32, seed=0):
         optimizer=optimizer))
 
 
+def tiny_vit_net(dtype=torch.float32, *, pooling="cls", attn_impl="dense",
+                 remat_policy="none"):
+    """The tiny ViT BYOL net: width 32, depth 2, 4 heads, patch 8, 32 px
+    (the JAX tests' ``vit_test`` at two blocks), heads 32/16, 10 classes."""
+    from byol_tpu_torch.models.byol_net import BYOLNet
+    from byol_tpu_torch.models.vit import ViT
+    backbone = ViT(width=32, depth=2, num_heads=4, patch_size=8, dtype=dtype,
+                   pooling=pooling, attn_impl=attn_impl,
+                   remat_policy=remat_policy, image_size=32)
+    return BYOLNet(backbone, num_classes=CLASSES, head_latent_size=HEAD,
+                   projection_size=PROJ, dtype=dtype)
+
+
 def tiny_state(converted=None, *, canonical=None, polyak_ema=0.0,
                zero1=False, flat_resident=False, bucket_mb=64,
-               optimizer="lars_momentum", dtype=torch.float32):
-    """The tiny net's train state at this rank, laid out by the plan,
-    holding ``converted`` (``convert.train_state_from_flax``) or a
-    ``canonical`` tree."""
+               optimizer="lars_momentum", dtype=torch.float32, vit=None):
+    """The tiny net's train state at this rank (the tiny ViT's with
+    ``vit``, :func:`tiny_vit_net`'s keywords), laid out by the plan over
+    the data axis, holding ``converted`` (``convert.train_state_from_flax``)
+    or a ``canonical`` tree."""
     from byol_tpu_torch.parallel import mesh
     from byol_tpu_torch.parallel.compile_plan import build_plan
     from byol_tpu_torch.training.state import (create_train_state,
                                                load_converted)
-    plan = build_plan(mesh.world_size(), zero1=zero1,
+    plan = build_plan(mesh.process_info()[1], zero1=zero1,
                       flat_resident=flat_resident, bucket_mb=bucket_mb)
-    net = tiny_net(dtype)
+    net = tiny_net(dtype) if vit is None else tiny_vit_net(dtype, **vit)
     state = create_train_state(
         net.double() if dtype == torch.float64 else net,
         polyak_ema=polyak_ema, pad_rows_to=plan.pad_rows_to,
@@ -140,8 +179,10 @@ def tiny_state(converted=None, *, canonical=None, polyak_ema=0.0,
 
 
 def train(spec):
-    """Steps of the tiny net on this rank's rows of each global batch
-    (``spec['optimizer']``, default lars_momentum, at ``spec['clip']``);
+    """Steps of the tiny net (the tiny ViT under ``spec['vit']``, the
+    blocks under ``spec['remat_policy']``) on this data rank's rows of each
+    global batch (``spec['optimizer']``, default lars_momentum, at
+    ``spec['clip']``);
     -> per-step metrics (host floats, the health vector as a list) and
     the canonical state, which rank 0 also checkpoints under
     ``spec['save_to']`` when given.  Without a process group: the
@@ -157,7 +198,10 @@ def train(spec):
                              polyak_ema=spec["scfg"].get("polyak_ema", 0.0),
                              optimizer=optimizer,
                              dtype=spec.get("dtype", torch.float32),
-                             **spec.get("plan", {}))
+                             vit=spec.get("vit"), **spec.get("plan", {}))
+    if spec.get("remat_policy"):
+        from byol_tpu_torch.core.remat import set_remat_policy
+        set_remat_policy(state.net, spec["remat_policy"])
     tx, sched = build_optimizer(
         optimizer, base_lr=spec.get("base_lr", BASE_LR),
         global_batch_size=LR_BATCH, weight_decay=WD, total_units=TOTAL,
@@ -329,9 +373,75 @@ def bn_stats(spec):
                                   state.batch_stats().items()}}
 
 
+def ring(spec):
+    """Ring attention on this data rank's rows of ``spec['qkv']``: -> the
+    output rows and the gradients of ``sum(out * spec['w'])`` by q, k, v
+    (each rank holds its data rows; the ring runs over its sequence
+    group)."""
+    from byol_tpu_torch.parallel import mesh
+    from byol_tpu_torch.parallel.ring_attention import ring_attention
+    qkv = [torch.from_numpy(mesh.shard_batch({"x": a})["x"]).requires_grad_()
+           for a in spec["qkv"]]
+    w = torch.from_numpy(mesh.shard_batch({"x": spec["w"]})["x"])
+    out = ring_attention(*qkv)
+    (out * w).sum().backward()
+    return {"out": out.detach(), "grads": [t.grad for t in qkv]}
+
+
+def ring_error(spec):
+    """The error the tiny ViT's ``spec['pooling']`` forward raises under
+    ring attention at this mesh (None: it ran)."""
+    net = tiny_vit_net(pooling=spec["pooling"], attn_impl="ring")
+    try:
+        net(torch.zeros(2, 32, 32, 3))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def step_inputs(spec):
+    """In-step augmented ViT steps (the unfused chain on the step's own
+    draws) of ``spec['batches']`` from this data rank's rows: -> the raw
+    images and the draws each step's views were made of, then the first
+    train batch of the CLI loader of ``spec['argv']`` at this mesh."""
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.data import device_augment as aug
+    from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.parallel import mesh
+    seen = []
+    to_device = aug.to_device
+
+    def record(drawn, device):
+        seen.append([[f.clone() for f in v] for v in drawn])
+        return to_device(drawn, device)
+    aug.to_device = record
+    try:
+        train(spec)
+    finally:
+        aug.to_device = to_device
+    images = [mesh.shard_batch(b)["images"] for b in spec["batches"]]
+    cfg = config_from_args(build_parser().parse_args(spec["argv"]))
+    batch = next(iter(get_loader(cfg).make_train_iter(0)))
+    return {"draws": seen, "images": images,
+            "loader": {k: np.asarray(v) for k, v in batch.items()}}
+
+
+def multi(spec):
+    """Several jobs in one world, in order: ``spec['parts']`` = [(job,
+    sub-spec)], each at the mesh of its ``sequence`` (default 1)."""
+    from byol_tpu_torch.parallel import mesh
+    results = []
+    for job, sub in spec["parts"]:
+        mesh.init_mesh(sub.get("sequence", 1))
+        results.append(JOBS[job](sub))
+    return results
+
+
 JOBS = {"train": train, "fit_cli": fit_cli, "fit_sigterm": fit_sigterm,
         "linear_eval": linear_eval,
-        "lockstep": lockstep, "gather": gather, "bn_stats": bn_stats}
+        "lockstep": lockstep, "gather": gather, "bn_stats": bn_stats,
+        "ring": ring, "ring_error": ring_error, "step_inputs": step_inputs,
+        "multi": multi}
 
 
 def main(argv):
@@ -344,7 +454,9 @@ def main(argv):
         "cpu", store=dist.FileStore(store_path, world), rank=rank,
         world_size=world, timeout_s=120.0)
     try:
-        result = JOBS[job](torch.load(spec_path, weights_only=False))
+        spec = torch.load(spec_path, weights_only=False)
+        mesh.init_mesh(spec.get("sequence", 1))
+        result = JOBS[job](spec)
         torch.save(result, out)
     finally:
         mesh.shutdown()
