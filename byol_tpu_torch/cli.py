@@ -3,20 +3,24 @@ byol_tpu/cli.py).  Every flag of the JAX package's parser is here, with
 its spelling, default and choices, and maps to the same ``Config`` field.
 What the port has no code path for is refused with a message naming
 ROADMAP.md: ``--download`` when nonzero (the port reads local files
-only), ``--model-parallel`` above 1 (the TP heads), ``--profile-port``
-above 0 (torch.profiler has no capture server).  ``--remat`` and
-``--remat-policy`` checkpoint each residual or encoder block under JAX's
-named policies (core/remat.py); ``--sequence-parallel N`` lays the world
-out as (data, sequence) and shards ViT attention over the sequence
-groups under ``--attn-impl ring`` (parallel/ring_attention.py).
+only), ``--profile-port`` above 0 (torch.profiler has no capture server).
+``--remat`` and ``--remat-policy`` checkpoint each residual or encoder
+block under JAX's named policies (core/remat.py); ``--sequence-parallel
+N`` lays the world out as (data, sequence, model) and shards ViT
+attention over the sequence groups under ``--attn-impl ring``
+(parallel/ring_attention.py); ``--model-parallel M`` splits the projector
+and predictor heads over the model groups (parallel/partitioning.py),
+with the unfused update only, as in JAX.
 ``--visdom-url``/``--visdom-port`` parse, warn and fall back to
 ``--grapher``, as in JAX.  ``--optimizer`` takes the JAX registry
 (rmsprop, adam, adadelta, sgd, momentum, lamb, lbfgs, each bare or as
 ``lars_<base>``) behind ``--clip``; ``--check-numerics`` runs the backward
 under autograd's anomaly mode and checks the loss and params each step.
 
-It runs on the card unless ``--no-cuda`` asks for the CPU; with no card and
-no ``--no-cuda`` it exits 2 before building anything.  Checkpoints go to
+It runs on the card unless ``--no-cuda`` asks for the CPU; a one-process
+launch first probes the card in a killable subprocess
+(core/preflight.py), and with no card, a wedged one, and no ``--no-cuda``
+it exits 2 before building anything.  Checkpoints go to
 ``--model-dir/<run name>``, and a relaunch with the same flags resumes
 there; on SIGTERM the run checkpoints and exits 143 (``--no-save-on-signal``
 turns that off), and ``--fault-at-step N`` exits at step N without saving.
@@ -245,7 +249,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted at 1; > 1 is refused (NCCL builds its "
                         "own rings)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="refused above 1 (ROADMAP.md, section 1 item 14)")
+                   help="ranks per model group (the tensor-parallel "
+                        "projector and predictor heads); the data axis is "
+                        "the world over this")
     p.add_argument("--sequence-parallel", type=int, default=1,
                    help="ranks per sequence group (ring attention); the "
                         "data axis is the world over this")
@@ -396,6 +402,19 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"metrics go to --grapher={args.grapher} under --log-dir",
               file=sys.stderr)
     from byol_tpu_torch.parallel import mesh
+    # the killable probe precedes every CUDA call of this process: against
+    # a wedged GPU runtime the first one blocks forever in native code.  Not
+    # for a multi-process launch, whose ranks would all probe the cards at
+    # once (JAX skips multi-host runs)
+    multi = (bool(args.distributed_master) or mesh.launched_by_torchrun()
+             or mesh.is_initialized())
+    if not args.no_cuda and not multi:
+        from byol_tpu_torch.core import preflight
+        if not preflight.preflight_backend():
+            print("byol_tpu_torch: accelerator backend unreachable "
+                  "(diagnosis above); pass --no-cuda to run on CPU, or "
+                  "retry when a probe matmul succeeds.", file=sys.stderr)
+            return 2
     try:
         device = mesh.local_device(args.no_cuda)
     except RuntimeError as e:

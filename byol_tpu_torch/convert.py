@@ -14,7 +14,10 @@ same names (module paths join with ``.``):
 
 It raises on a leaf it cannot place, on BatchNorm statistics without their
 module, and, given the target's state dict as ``like``, on any key that
-is missing, left over, or of another shape.
+is missing, left over, or of another shape.  Given ``shard`` = (M, i), the
+leaves of the tensor-parallel heads are model index i's slices of the
+whole ones over a model axis of M (parallel/partitioning.py), the shapes
+of a net whose heads are split (models/byol_net.py::shard_heads).
 
 :func:`train_state_from_flax` carries a whole JAX ``TrainState`` across
 (params, BN statistics, EMA target, the optimizer's state under optax's
@@ -47,7 +50,8 @@ def _tensor(a) -> torch.Tensor:
 
 def from_flax(params: Mapping[str, Any],
               batch_stats: Optional[Mapping[str, Any]] = None, *,
-              like: Optional[Mapping[str, torch.Tensor]] = None
+              like: Optional[Mapping[str, torch.Tensor]] = None,
+              shard: Optional[Tuple[int, int]] = None
               ) -> Dict[str, torch.Tensor]:
     flat = _flatten(params)
     stats = _flatten(batch_stats or {})
@@ -82,6 +86,12 @@ def from_flax(params: Mapping[str, Any],
                              "BatchNorm scale in params")
     if stats:
         raise ValueError(f"from_flax: unconsumed batch_stats {sorted(stats)}")
+    if shard is not None and shard[0] > 1:
+        from byol_tpu_torch.parallel.partitioning import shard_leaf, tp_dim
+        for key, t in sd.items():
+            dim = tp_dim(key, t.ndim)
+            if dim is not None:
+                sd[key] = shard_leaf(t, dim, *shard, key).clone()
     if like is not None:
         missing = sorted(set(like) - set(sd))
         extra = sorted(set(sd) - set(like))
@@ -144,6 +154,8 @@ def train_state_from_flax(state: Mapping[str, Any], *,
     statistics), ``opt_counts``, ``optimizer`` when given, and the three
     counters as Python ints.  Every tree must have the params' structure.
     ``like`` (the online net's state dict) checks every key and shape.
+    The trees are whole: ``training/state.py::load_converted`` keeps a
+    model rank's slices of them.
     """
     from byol_tpu_torch.optim.transforms import FROM_OPTAX
     online = from_flax(state["params"], state.get("batch_stats"), like=like)

@@ -164,6 +164,25 @@ class ResolvedConfig:
         return self.cfg.task.batch_size // self.cfg.optim.accum_steps
 
 
+# JAX's refusals of what does not compose with --model-parallel > 1
+# (byol_tpu/core/config.py::resolve), word for word
+ZERO1_MODEL_PARALLEL = (
+    "--zero1 on does not compose with --model-parallel > 1 (tensor "
+    "parallelism already shards those optimizer-state leaves over the "
+    "'model' axis)")
+FUSED_UPDATE_MODEL_PARALLEL = (
+    "--fused-update on does not compose with --model-parallel > 1 (tensor "
+    "parallelism shards head opt-state leaves over 'model'; the fused "
+    "kernel's flat buffer would un-shard them every step)")
+FLAT_RESIDENT_MODEL_PARALLEL = (
+    "--flat-resident on lays the update state out over the data axis; it "
+    "does not compose with --model-parallel > 1")
+FUSED_AUGMENT_MESH = (
+    "--fused-augment on spans the data axis only (the kernel's shard_map "
+    "augments each chip's batch shard); model/sequence-parallel meshes are "
+    "not yet supported — run those with --fused-augment off")
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to byol_tpu_torch yet (ROADMAP.md, {item})")
@@ -171,9 +190,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _refuse_unported(cfg: Config) -> None:
     """The values whose code paths the port does not have yet."""
-    if cfg.device.model_parallel > 1:
-        raise _not_ported("--model-parallel > 1 (the TP heads)",
-                          "section 1 item 14")
     if cfg.device.dcn_data_parallel > 1:
         raise _not_ported(
             "--dcn-data-parallel > 1 (NCCL builds its own rings over NVLink "
@@ -225,6 +241,9 @@ def resolve(cfg: Config, *, num_train_samples: int, num_test_samples: int,
     if cfg.device.telemetry_interval < 1:
         raise ValueError(f"telemetry_interval must be >= 1, got "
                          f"{cfg.device.telemetry_interval}")
+    tp = cfg.device.model_parallel > 1
+    if cfg.device.zero1 == "on" and tp:
+        raise ValueError(ZERO1_MODEL_PARALLEL)
     if cfg.optim.fused_update == "on":
         # the kernels implement exactly the lars_momentum chain
         from byol_tpu_torch.optim.factory import (
@@ -233,6 +252,12 @@ def resolve(cfg: Config, *, num_train_samples: int, num_test_samples: int,
                                                  cfg.optim.clip)
         if reason is not None:
             raise ValueError(f"--fused-update on: {reason}")
+        if tp:
+            raise ValueError(FUSED_UPDATE_MODEL_PARALLEL)
+    # the port lays the resident buffers out for any chain; with the TP
+    # heads it refuses them as JAX does
+    if cfg.device.flat_resident == "on" and tp:
+        raise ValueError(FLAT_RESIDENT_MODEL_PARALLEL)
     if cfg.device.flat_bucket_mb < 1:
         raise ValueError(f"flat_bucket_mb must be >= 1, got "
                          f"{cfg.device.flat_bucket_mb}")
@@ -249,13 +274,8 @@ def resolve(cfg: Config, *, num_train_samples: int, num_test_samples: int,
                 "global: the global oracle vmaps microbatches, and the "
                 "augment kernel's pallas_call/shard_map cannot run under "
                 "that vmap — use 'average' or 'microbatch'")
-        if (cfg.device.model_parallel > 1
-                or cfg.device.sequence_parallel > 1):
-            raise ValueError(
-                "--fused-augment on spans the data axis only (the "
-                "kernel's shard_map augments each chip's batch shard); "
-                "model/sequence-parallel meshes are not yet supported — "
-                "run those with --fused-augment off")
+        if tp or cfg.device.sequence_parallel > 1:
+            raise ValueError(FUSED_AUGMENT_MESH)
     if cfg.device.nan_policy == "halt" and cfg.device.telemetry == "off":
         raise ValueError("--nan-policy halt requires --telemetry epoch|step")
     _refuse_unported(cfg)

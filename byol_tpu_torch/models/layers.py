@@ -57,9 +57,17 @@ class Dense(nn.Linear):
     def reset_parameters(self) -> None:   # init_params draws them
         pass
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, with_bias: bool = True
+                ) -> torch.Tensor:
+        """``with_bias=False`` leaves the bias to :meth:`add_bias` (a
+        row-parallel layer adds it once, after the sum of its partial
+        products)."""
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        self.bias.to(dt) if with_bias else None)
+
+    def add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        return y + self.bias.to(self.dtype)
 
 
 class Conv(nn.Conv2d):

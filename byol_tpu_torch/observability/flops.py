@@ -14,6 +14,9 @@ One convention: a multiply-add is 2 FLOPs, as in the quoted peaks.
   Pallas calls count 0 in XLA's cost analysis; elementwise and reduction
   operators count 0 too, as FlopCounterMode counts only matmuls,
   convolutions and attention.
+  It also counts the FLOPs of the tensor-parallel heads
+  (parallel/partitioning.py::TP_MODULES), whose matmuls each rank runs
+  1/M of.
 - :func:`mfu`: model FLOPs utilisation of one card.
 """
 from __future__ import annotations
@@ -47,23 +50,32 @@ def chip_peak_tflops(device_name: Optional[str] = None) -> Optional[float]:
 
 
 class FlopCount:
-    """What :func:`counting` saw: ``total`` FLOPs once the block ends."""
+    """What :func:`counting` saw: ``total`` FLOPs once the block ends,
+    and ``split`` of them in the named submodules."""
 
     def __init__(self) -> None:
         self.total: Optional[float] = None
+        self.split = 0.0
 
 
 @contextlib.contextmanager
 def counting() -> Iterator[FlopCount]:
     """Count the FLOPs of the enclosed code; ``total`` is None when the
-    counter saw none."""
+    counter saw none.  ``split`` sums those of the root module's
+    tensor-parallel children (``BYOLNet.projector``, of every BYOLNet
+    run)."""
     from torch.utils.flop_counter import FlopCounterMode
+
+    from byol_tpu_torch.parallel.partitioning import TP_MODULES
     out = FlopCount()
     mode = FlopCounterMode(display=False)
     with mode:
         yield out
     total = float(mode.get_total_flops())
     out.total = total if total > 0 else None
+    out.split = float(sum(
+        sum(ops.values()) for name, ops in mode.get_flop_counts().items()
+        if name.count(".") == 1 and name.split(".")[1] in TP_MODULES))
 
 
 def mfu(images_per_sec_per_chip: float, flops_per_sample: Optional[float],

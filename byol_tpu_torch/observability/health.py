@@ -11,8 +11,9 @@ blocking the step loop.
 
 The buffers are zero-padded to whole 128-lane rows per leaf; the padding
 adds nothing to any norm or count, so a norm over a buffer is the norm
-over its leaves.  Every reduction accumulates in fp32.  Where the JAX
-function reads a pytree, these take a tensor or a sequence of tensors.
+over its leaves.  Every reduction accumulates in fp32 (float64 for a
+float64 buffer, a test's).  Where the JAX function reads a pytree, these
+take a tensor or a sequence of tensors.
 
 ``HEALTH_FIELDS`` names every slot; :func:`pack` and :func:`unpack` are
 the only writers and readers of the layout:
@@ -32,10 +33,12 @@ the only writers and readers of the layout:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from byol_tpu_torch.core.precision import at_least_fp32
 
 HEALTH_FIELDS: Tuple[str, ...] = (
     "grad_norm",
@@ -71,11 +74,11 @@ def _square_norm(t: torch.Tensor) -> torch.Tensor:
     the CPU too, where one ``vector_norm`` over 10^7 elements drifts by
     ~1e-3."""
     t = t.reshape(-1)
+    dt = torch.promote_types(t.dtype, torch.float32)
     if t.numel() > _ROW and t.numel() % _ROW == 0:
-        rows = torch.linalg.vector_norm(t.view(-1, _ROW), dim=1,
-                                        dtype=torch.float32)
+        rows = torch.linalg.vector_norm(t.view(-1, _ROW), dim=1, dtype=dt)
         return rows.square().sum()
-    return torch.linalg.vector_norm(t, dtype=torch.float32).square()
+    return torch.linalg.vector_norm(t, dtype=dt).square()
 
 
 def global_norm(tensors: Tensors) -> torch.Tensor:
@@ -159,7 +162,8 @@ def health_stats(*, grads: Tensors, update_norm: torch.Tensor,
                  collapse: Tuple[torch.Tensor, torch.Tensor],
                  trust_ratios: torch.Tensor,
                  grad_stats: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                 = None) -> torch.Tensor:
+                 = None, norm: Callable[[Tensors], torch.Tensor] = global_norm
+                 ) -> torch.Tensor:
     """The packed health vector of one optimizer step.
 
     ``update_norm`` is the norm of the applied update: the train step
@@ -171,11 +175,13 @@ def health_stats(*, grads: Tensors, update_norm: torch.Tensor,
     ``trust_ratios`` the ratios the update applied to the adapted leaves
     (K1a's own under the fused update).  ``grad_stats`` (the gradient's
     norm and non-finite count) replaces what ``grads`` would give where
-    the averaged gradient lives on the ranks' ranges (ZeRO-1).  The result
-    is a fresh tensor, never a view of the state."""
-    param_norm = global_norm(params)
-    drift = global_norm([p.float() - t.float() for p, t in
-                         zip(_leaves(params), _leaves(target_params))])
+    the averaged gradient lives on the ranks' ranges (ZeRO-1), or on the
+    model ranks' shards (the tensor-parallel heads), where ``norm`` is
+    the whole tree's norm of the params' and the drift's flat buffers.
+    The result is a fresh tensor, never a view of the state."""
+    param_norm = norm(params)
+    drift = norm([at_least_fp32(p) - at_least_fp32(t) for p, t in
+                  zip(_leaves(params), _leaves(target_params))])
     feature_std, cosine_mean = collapse
     tr = trust_ratios.float()
     grad_norm, grad_nonfinite = (grad_stats if grad_stats is not None else

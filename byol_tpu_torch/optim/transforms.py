@@ -15,7 +15,10 @@ the identity on one device and an in-place all-reduce
   (``segment_sums`` of the range, ``reduce``, ``segment_epilogue``), the
   kernels on the card and their plain versions on the CPU;
 - the vdots and norms of lbfgs are float64 sums of row partials, then
-  ``reduce``, so a sharded update and a whole one agree to rounding.
+  ``reduce``, so a sharded update and a whole one agree to rounding;
+- over a model axis of M > 1 (the tensor-parallel heads) ``model``
+  (parallel/partitioning.py::ModelShards) sums them over the model ranks
+  as well, each replicated leaf's partials counted once.
 
 The semantics are optax's, each a known trap:
 
@@ -94,11 +97,22 @@ def identity(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _dots(pairs, reduce: Reduce) -> torch.Tensor:
+def _dots(pairs, reduce: Reduce, model=None) -> torch.Tensor:
     """``sum(x * y)`` of each pair over the range: row partials in the
-    buffers' dtype, summed in float64, then ``reduce``d, in one call."""
+    buffers' dtype, summed in float64, then ``reduce``d, in one call
+    (over the model axis too, given ``model``)."""
+    if model is not None:
+        return reduce(model.dots(pairs))
     return reduce(torch.stack([
         (x * y).view(-1, LANES).sum(1).double().sum() for x, y in pairs]))
+
+
+def _segment_sums(p, g, layout: FusedLayout, reduce: Reduce, model
+                  ) -> torch.Tensor:
+    """The split K1a's first half, its sums ``reduce``d (and summed over
+    the model axis, given ``model``) for the second."""
+    sums = reduce(fused_lib.segment_sums(p, g, layout))
+    return sums if model is None else model.segments(sums)
 
 
 class _Derived:
@@ -157,7 +171,7 @@ def _adam_direction(g, opt, counts, eps):
     return mu_hat.div_(nu_hat.sqrt_().add_(eps))
 
 
-def _lbfgs_direction(p, g, opt, counts, reduce: Reduce):
+def _lbfgs_direction(p, g, opt, counts, reduce: Reduce, model=None):
     """optax's ``scale_by_lbfgs(memory_size=10, scale_init_precond=True)``
     on the range: memories written at ``(count - 1) % 10``, the identity
     scale, then the two-loop recursion over ``(count % 10 + arange(10)) %
@@ -174,7 +188,7 @@ def _lbfgs_direction(p, g, opt, counts, reduce: Reduce):
         du = g - opt["lbfgs_updates"]
     else:
         dp, du = torch.zeros_like(p), torch.zeros_like(g)
-    sums = _dots([(du, dp), (du, du), (g, g)], reduce).to(dt)
+    sums = _dots([(du, dp), (du, du), (g, g)], reduce, model).to(dt)
     vdot, den, gg = sums.unbind()
     zero = torch.zeros((), dtype=dt, device=g.device)
     if count > 0:
@@ -192,12 +206,13 @@ def _lbfgs_direction(p, g, opt, counts, reduce: Reduce):
     alphas = [None] * mem
     for j in reversed(range(mem)):
         i = order[j]
-        alphas[j] = rhos[i] * _dots([(dpm[i], vec)], reduce).to(dt)[0]
+        alphas[j] = rhos[i] * _dots([(dpm[i], vec)], reduce,
+                                    model).to(dt)[0]
         vec.addcmul_(dum[i], -alphas[j])
     vec.mul_(scale)
     for j in range(mem):
         i = order[j]
-        beta = rhos[i] * _dots([(dum[i], vec)], reduce).to(dt)[0]
+        beta = rhos[i] * _dots([(dum[i], vec)], reduce, model).to(dt)[0]
         vec.addcmul_(dpm[i], alphas[j] - beta)
     opt["lbfgs_params"].copy_(p)
     opt["lbfgs_updates"].copy_(g)
@@ -250,11 +265,13 @@ class Chain:
     def update(self, p: torch.Tensor, g: torch.Tensor,
                opt: Mapping[str, torch.Tensor],
                counts: MutableMapping[str, int], *, lr: float,
-               layout: FusedLayout, reduce: Reduce = identity
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               layout: FusedLayout, reduce: Reduce = identity,
+               model=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """One step on the range ``layout`` describes.  ``p`` and ``g``
         hold the range's elements; ``opt`` the range's state buffers
-        (written in place), ``counts`` the counters (ticked in place).
+        (written in place), ``counts`` the counters (ticked in place);
+        ``model`` (a ``ModelShards``) when the buffers hold shards of
+        tensor-parallel heads.
         Returns ``(u, trust)``: the update to add to ``p`` and the trust
         ratios LARS applied to the adapted segments in leaf order (ones(1)
         without LARS, or with nothing adapted).  ``g`` is left as it
@@ -266,7 +283,7 @@ class Chain:
         if self.lars:
             # the split K1a's sums are of p and g + wd p (it folds the
             # layout's weight decay in itself)
-            sums = reduce(fused_lib.segment_sums(p, g, layout))
+            sums = _segment_sums(p, g, layout, reduce, model)
             scale, _ = fused_lib.segment_epilogue(
                 sums, layout, self.trust_coefficient, self.eps)
             g = d.per_row(d.decayed(g, p), scale)
@@ -291,11 +308,11 @@ class Chain:
         elif base == "lamb":
             u = _adam_direction(g, opt, counts, LAMB_EPS)
             lamb = d.lamb
-            sums = reduce(fused_lib.segment_sums(p, u, lamb))
+            sums = _segment_sums(p, u, lamb, reduce, model)
             scale, _ = fused_lib.segment_epilogue(sums, lamb, 1.0, 0.0)
             u = d.per_row(u, scale)
         elif base == "lbfgs":
-            u = _lbfgs_direction(p, g, opt, counts, reduce)
+            u = _lbfgs_direction(p, g, opt, counts, reduce, model)
         else:
             raise ValueError(f"unknown optimizer {base!r}")
         return torch.mul(u, -lr), trust

@@ -1,18 +1,25 @@
 """Collectives over the mesh's axes (counterpart of
 byol_tpu/parallel/collectives.py).
 
-Each takes JAX's ``axis_name`` (``data`` or ``sequence``) and runs over
-this rank's group along that axis (parallel/mesh.py); without a process
-group, or along an axis of size 1, each is the identity of a one-rank
-world, so the one-card paths need no group.  :func:`psum`, :func:`pmean`
-and :func:`all_gather` are differentiable: the backward of a sum over
-ranks sums the ranks' gradients (what ``torch.distributed.nn.functional``
-computes; torch 2.13 deprecates that module, so the port keeps its own
-autograd functions).  :func:`ppermute_shift` is JAX's ``lax.ppermute``
-ring shift over the sequence group (paired P2P sends and receives), whose
-backward shifts the gradient back.  The in-place helpers serve the flat
-buffers of the train step over the data axis: the gradient all-reduce,
-the ZeRO-1 reduce-scatter, all-gathers and broadcasts.  A failed
+Each takes JAX's ``axis_name`` (``data``, ``sequence`` or ``model``) and
+runs over this rank's group along that axis (parallel/mesh.py); without a
+process group, or along an axis of size 1, each is the identity of a
+one-rank world, so the one-card paths need no group.  :func:`psum`,
+:func:`pmean` and :func:`all_gather` are differentiable: the backward of a
+sum over ranks sums the ranks' gradients (what
+``torch.distributed.nn.functional`` computes; torch 2.13 deprecates that
+module, so the port keeps its own autograd functions).
+:func:`ppermute_shift` is JAX's ``lax.ppermute`` ring shift over the
+sequence group (paired P2P sends and receives), whose backward shifts the
+gradient back.  The in-place helpers serve the flat buffers of the train
+step over the data axis: the gradient all-reduce, the ZeRO-1
+reduce-scatter, all-gathers and broadcasts; in a world laid out over a
+sequence or model axis whose data axis is 1 they run nothing.
+:func:`copy_to_model` and :func:`reduce_from_model` are Megatron's pair
+around a tensor-parallel block over the model axis: the identity forward
+with a sum of the gradients backward, and a sum forward with the
+identity backward (:func:`psum` sums in both directions, which would
+multiply every gradient of the block by the model axis's size).  A failed
 collective raises; nothing falls back.
 """
 from __future__ import annotations
@@ -21,8 +28,8 @@ import torch
 import torch.distributed as dist
 
 from byol_tpu_torch.parallel import mesh
-from byol_tpu_torch.parallel.mesh import (DATA_AXIS, SEQUENCE_AXIS,
-                                          is_initialized)
+from byol_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                          SEQUENCE_AXIS, is_initialized)
 
 # torch 2.13 renames the two flat-tensor collectives (the old names warn)
 _all_gather_flat = (getattr(dist, "all_gather_single", None)
@@ -60,6 +67,68 @@ class _AllGather(torch.autograd.Function):
         grad = grad.contiguous().clone()
         dist.all_reduce(grad, group=ctx.group)
         return grad.chunk(ctx.size)[ctx.index], None, None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, whose gradient is summed over the model axis's
+    ranks: the input of a tensor-parallel block, which each rank feeds
+    into its own shard."""
+    if not _grouped(MODEL_AXIS):
+        return x
+    return _CopyToModel.apply(x, mesh.axis_group(MODEL_AXIS))
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the model axis's ranks of their partial ``x``, whose
+    gradient passes to each rank as it is: the output of a
+    tensor-parallel block."""
+    if not _grouped(MODEL_AXIS):
+        return x
+    return _ReduceFromModel.apply(x, mesh.axis_group(MODEL_AXIS))
+
+
+def model_sum_(x: torch.Tensor) -> torch.Tensor:
+    """In-place sum over the model axis's ranks, no autograd; the
+    identity at a model axis of 1."""
+    if _grouped(MODEL_AXIS):
+        dist.all_reduce(x, group=mesh.axis_group(MODEL_AXIS))
+    return x
+
+
+def _data_grouped() -> bool:
+    """The in-place data-axis helpers run: over a data axis of more than
+    one rank, or in a world of one rank with a group (torchrun with one
+    process), whose one-rank collectives are the larger worlds' code
+    path on one card.  A lone data rank of a larger world (its ranks on
+    the sequence or model axis) runs none: a sum over one rank is
+    exact."""
+    return is_initialized() and (mesh.axis_size(DATA_AXIS) > 1
+                                 or mesh.world_size() == 1)
 
 
 def _grouped(axis_name: str) -> bool:
@@ -144,7 +213,7 @@ def axis_index(axis_name: str = DATA_AXIS) -> int:
 def psum_(x: torch.Tensor) -> torch.Tensor:
     """In-place sum over the data axis's ranks, no autograd; returns
     ``x``."""
-    if is_initialized():
+    if _data_grouped():
         dist.all_reduce(x, group=mesh.axis_group(DATA_AXIS))
     return x
 
@@ -154,7 +223,7 @@ def grad_allreduce_mean(buf: torch.Tensor) -> torch.Tensor:
     buffer, once an optimizer step).  A sum then a division by the data
     axis's size: gloo has no AVG, and one rank's division by 1 is
     exact."""
-    if is_initialized():
+    if _data_grouped():
         dist.all_reduce(buf, group=mesh.axis_group(DATA_AXIS))
         buf.div_(mesh.axis_size(DATA_AXIS))
     return buf
@@ -181,7 +250,7 @@ def all_gather_into(buf: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
 
 def broadcast_(x: torch.Tensor, src: int) -> torch.Tensor:
     """``x`` of data rank ``src`` on every rank of this data group."""
-    if is_initialized():
+    if _data_grouped():
         dist.broadcast(x, mesh.axis_ranks(DATA_AXIS)[src],
                        group=mesh.axis_group(DATA_AXIS))
     return x

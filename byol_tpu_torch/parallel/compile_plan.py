@@ -6,7 +6,8 @@ port has no compiler to instruct: its state is resident and flat, and the
 train step updates it in place (what JAX's donation of the state buys).
 The plan keeps what is left: the data axis's size (``world``: the ranks
 ZeRO-1 shards over; a sequence group's ranks hold one range each), the
-sequence axis's, ``--zero1``,
+sequence and model axes' (the model axis's heads are split by
+models/byol_net.py::shard_heads before the state is made), ``--zero1``,
 ``--flat-resident`` and ``--flat-bucket-mb``; it shards a train state
 (:meth:`CompilePlan.prepare`), names itself in the run header
 (:meth:`CompilePlan.describe`, JAX's fields) and converts at the
@@ -47,6 +48,7 @@ class CompilePlan:
     flat_resident: bool = False
     bucket_mb: int = DEFAULT_BUCKET_MB
     sequence: int = 1
+    model: int = 1
 
     @property
     def pad_rows_to(self) -> int:
@@ -58,7 +60,8 @@ class CompilePlan:
         self.pad_rows_to)``) this plan's: rank 0's params, target, Polyak
         average and BatchNorm statistics on every rank, and under ZeRO-1
         the rank's range context with the optimizer's state cut to its
-        shard."""
+        shard.  The broadcast runs over the data axis: each model index
+        keeps its own shards of the heads."""
         if collectives.is_initialized():
             # every rank draws the same weights from the seed; the
             # broadcast makes the replicas' start equal by construction
@@ -69,6 +72,9 @@ class CompilePlan:
                     collectives.broadcast_(buf, 0)
         if not self.zero1:
             return
+        if self.model > 1:
+            from byol_tpu_torch.core.config import ZERO1_MODEL_PARALLEL
+            raise ValueError(ZERO1_MODEL_PARALLEL)
         ctx = Zero1Context.build(
             state.seg, world=self.world, rank=process_info()[0],
             weight_decay=weight_decay, device=state.params.device,
@@ -91,7 +97,8 @@ class CompilePlan:
         """The run header's ``sharding_plan``, with JAX's fields."""
         return {
             "mesh_shape": {DATA_AXIS: int(self.world),
-                           SEQUENCE_AXIS: int(self.sequence), MODEL_AXIS: 1},
+                           SEQUENCE_AXIS: int(self.sequence),
+                           MODEL_AXIS: int(self.model)},
             "axis_names": list(AXIS_NAMES),
             "zero1": "on" if self.zero1 else "off",
             "donate_argnums": {k: list(v) for k, v in DONATE.items()},
@@ -117,13 +124,13 @@ class CompilePlan:
 def build_plan(world: int = 1, *, zero1: bool = False,
                flat_resident: bool = False,
                bucket_mb: int = DEFAULT_BUCKET_MB,
-               sequence: int = 1) -> CompilePlan:
+               sequence: int = 1, model: int = 1) -> CompilePlan:
     """The one constructor: ``cfg.device.zero1 == 'on'`` -> a ZeRO-1
     plan, ``flat_resident`` -> bucketed gathers."""
     if bucket_mb < 1:
         raise ValueError(f"flat_bucket_mb must be >= 1, got {bucket_mb}")
     return CompilePlan(world=world, zero1=zero1, flat_resident=flat_resident,
-                       bucket_mb=bucket_mb, sequence=sequence)
+                       bucket_mb=bucket_mb, sequence=sequence, model=model)
 
 
 def plan_from_cfg(cfg, world: int) -> CompilePlan:
@@ -131,4 +138,5 @@ def plan_from_cfg(cfg, world: int) -> CompilePlan:
     return build_plan(world, zero1=cfg.device.zero1 == "on",
                       flat_resident=cfg.device.flat_resident == "on",
                       bucket_mb=cfg.device.flat_bucket_mb,
-                      sequence=cfg.device.sequence_parallel)
+                      sequence=cfg.device.sequence_parallel,
+                      model=cfg.device.model_parallel)

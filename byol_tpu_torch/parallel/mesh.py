@@ -9,11 +9,12 @@ the rows of the global batch, data rank d its rows ``[d L, (d + 1) L)``,
 ``L = global / D``, the process-major order of JAX's
 ``shard_batch_to_mesh``; the ranks of one sequence group (the ranks that
 share d and m) hold the same rows, and ring attention
-(parallel/ring_attention.py) runs across them.  :func:`process_info` is
-the data axis's ``(d, D)``.  With no sequence axis (S = M = 1, the default)
-the data group is the whole world and every helper does what it did
-before the sequence axis existed.  ``--model-parallel`` > 1 is refused
-(ROADMAP.md, section 1 item 14: the TP heads), and
+(parallel/ring_attention.py) runs across them; the ranks of one model
+group (the ranks that share d and s) hold the same rows too, and the
+tensor-parallel heads (parallel/partitioning.py) split their hidden dim
+across them.  :func:`process_info` is the data axis's ``(d, D)``.  With
+neither axis (S = M = 1, the default) the data group is the whole world
+and every helper does what it did before those axes existed.
 ``--dcn-data-parallel`` > 1 has no meaning here, since NCCL builds its own
 rings over NVLink and IB.
 
@@ -39,7 +40,7 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 SEQUENCE_AXIS = "sequence"
 MODEL_AXIS = "model"
-# the JAX mesh's axes; the port's model axis is size 1
+# the JAX mesh's axes
 AXIS_NAMES = (DATA_AXIS, SEQUENCE_AXIS, MODEL_AXIS)
 
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
@@ -166,16 +167,13 @@ def shutdown() -> None:
 
 
 def init_mesh(sequence: int = 1, model: int = 1) -> Dict[str, int]:
-    """Lay the world out as ``(data, sequence, model)`` and build the
-    data and sequence groups; every rank calls it with the same sizes
-    (the groups are made in one order on every rank).  -> the mesh shape.
-    ``sequence`` 1 keeps the data axis the whole world and builds no
-    group."""
+    """Lay the world out as ``(data, sequence, model)``, rank = (d S + s)
+    M + m, and build the groups of the axes that exist: every rank calls
+    it with the same sizes, and the groups are made in one order on every
+    rank (the data groups, then the sequence groups, then the model
+    groups).  -> the mesh shape.  ``sequence`` = ``model`` = 1 keeps the
+    data axis the whole world and builds no group."""
     global _layout
-    if model > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 (the TP heads) is not ported to "
-            "byol_tpu_torch yet (ROADMAP.md, section 1 item 14)")
     world, r = world_size(), rank()
     tp_sp = sequence * model
     if tp_sp < 1 or tp_sp > world or world % tp_sp:
@@ -186,23 +184,32 @@ def init_mesh(sequence: int = 1, model: int = 1) -> Dict[str, int]:
     if mesh_shape() == {DATA_AXIS: n_data, SEQUENCE_AXIS: sequence,
                         MODEL_AXIS: model}:
         return mesh_shape()                  # laid out already
-    if sequence == 1:
+    if tp_sp == 1:
         _layout = None
         return mesh_shape()
-    # rank = d S + s (the model axis is 1); one order of new_group calls on
-    # every rank: the data groups, then the sequence groups
-    d, s = divmod(r, sequence)
-    layout = {MODEL_AXIS: _Axis(1, 0, (r,), None)}
-    for s_ in range(sequence):
-        ranks = tuple(d_ * sequence + s_ for d_ in range(n_data))
-        group = dist.new_group(list(ranks))
-        if s_ == s:
-            layout[DATA_AXIS] = _Axis(n_data, d, ranks, group)
-    for d_ in range(n_data):
-        ranks = tuple(d_ * sequence + s_ for s_ in range(sequence))
-        group = dist.new_group(list(ranks))
-        if d_ == d:
-            layout[SEQUENCE_AXIS] = _Axis(sequence, s, ranks, group)
+    sizes = {DATA_AXIS: n_data, SEQUENCE_AXIS: sequence, MODEL_AXIS: model}
+    here = {DATA_AXIS: r // tp_sp, SEQUENCE_AXIS: r // model % sequence,
+            MODEL_AXIS: r % model}
+
+    def rank_at(at):
+        return (at[DATA_AXIS] * sequence + at[SEQUENCE_AXIS]) * model \
+            + at[MODEL_AXIS]
+    layout = {}
+    for axis in AXIS_NAMES:
+        if axis != DATA_AXIS and sizes[axis] == 1:
+            layout[axis] = _Axis(1, 0, (r,), None)
+            continue
+        others = [a for a in AXIS_NAMES if a != axis]
+        # one group per value of the other two axes, in their order
+        for i in range(sizes[others[0]]):
+            for j in range(sizes[others[1]]):
+                at = {others[0]: i, others[1]: j}
+                ranks = tuple(rank_at(dict(at, **{axis: k}))
+                              for k in range(sizes[axis]))
+                group = dist.new_group(list(ranks))
+                if r in ranks:
+                    layout[axis] = _Axis(sizes[axis], here[axis], ranks,
+                                         group)
     _layout = layout
     return mesh_shape()
 

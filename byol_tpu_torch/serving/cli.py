@@ -258,11 +258,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     import signal
     import threading
 
-    from byol_tpu_torch.core.preflight import resolve_device
+    from byol_tpu_torch.core.preflight import (preflight_backend,
+                                               resolve_device)
     from byol_tpu_torch.observability.events import run_header_env
     from byol_tpu_torch.serving.meter import serve_log_line
     from byol_tpu_torch.serving.service import ServeConfig, build_service
 
+    # the same killable probe as training: serving startup must fail fast
+    # against a wedged GPU runtime, not hang in its first CUDA call
+    if not args.no_cuda and not preflight_backend():
+        print("byol_tpu_torch serve: accelerator backend unreachable; pass "
+              "--no-cuda to serve on CPU.", file=sys.stderr)
+        return 2
     try:
         device = resolve_device(args.no_cuda)
     except RuntimeError as e:

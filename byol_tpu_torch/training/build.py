@@ -1,9 +1,12 @@
 """Wiring: resolved config -> net, train state, steps (counterpart of
 byol_tpu/training/build.py), on this rank's device, laid out by the
-compile plan (parallel/compile_plan.py: the data axis, ZeRO-1).  Both
-backbone families take the remat policy; a names-based one is checked for
-its block_out tags by one dry forward (core/remat.py), as JAX's build
-traces its forward."""
+compile plan (parallel/compile_plan.py: the data axis, ZeRO-1).  Over a
+model axis of M > 1 every rank draws the whole net from the seed and
+keeps its model index's shards of the heads (models/byol_net.py::
+shard_heads), so a run at M holds exactly the slices of the one-rank
+run's weights.  Both backbone families take the remat policy; a
+names-based one is checked for its block_out tags by one dry forward
+(core/remat.py), as JAX's build traces its forward."""
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
@@ -14,10 +17,12 @@ from byol_tpu_torch.core import remat as remat_lib
 from byol_tpu_torch.core.config import ResolvedConfig
 from byol_tpu_torch.core.precision import get_policy
 from byol_tpu_torch.core.rng import split_named
-from byol_tpu_torch.models.byol_net import BYOLNet, build_byol_net
+from byol_tpu_torch.models.byol_net import (BYOLNet, build_byol_net,
+                                            shard_heads)
 from byol_tpu_torch.models.init import apply_weight_init
 from byol_tpu_torch.models.registry import get_spec
 from byol_tpu_torch.optim.factory import build_optimizer, is_lars_optimizer
+from byol_tpu_torch.parallel import partitioning
 from byol_tpu_torch.parallel.compile_plan import CompilePlan
 from byol_tpu_torch.training.state import TrainState, create_train_state
 from byol_tpu_torch.training.steps import (StepConfig, make_eval_step,
@@ -135,18 +140,25 @@ def setup_training(rcfg: ResolvedConfig, device,
     """Returns (net, state, train_step, eval_step, lr_schedule): the net
     built on ``device``, its kernels drawn again under
     ``--weight-initialization`` (from the ``weight_init`` stream of
-    ``cfg.device.seed``), and flattened into the train state, which
+    ``cfg.device.seed``), its heads cut to the laid-out model axis's
+    shards, and flattened into the train state, which
     ``plan`` (default: one rank, no ZeRO-1) prepares: rank 0's weights on
     every rank, and under ZeRO-1 the optimizer's state cut to the rank's
     range."""
     cfg = rcfg.cfg
+    size, index = partitioning.model_axis()
+    if size != cfg.device.model_parallel:
+        raise ValueError(
+            f"--model-parallel {cfg.device.model_parallel} on a mesh whose "
+            f"model axis is {size}: lay the world out first "
+            "(parallel/mesh.py::init_mesh)")
     policy = get_policy(cfg.device.half)
     net = build_net(rcfg, generator)
     if cfg.model.weight_initialization:
         apply_weight_init(
             net, split_named(cfg.device.seed, ("weight_init",))["weight_init"],
             cfg.model.weight_initialization)
-    net = net.to(device)
+    net = shard_heads(net, size, index).to(device)
     validate_remat_tags(net, rcfg, device)
     plan = plan if plan is not None else CompilePlan()
     state = create_train_state(net, ema_init_mode=cfg.parity.ema_init_mode,

@@ -279,9 +279,11 @@ def encoder_extractor_spmd(net, state, *, half: bool = False,
     """The frozen encoder of one rank for :func:`extract_features_spmd`:
     host images (B, H, W, C) -> fp32 features (B, D) left on the state's
     device, where the all-gather reads them.  It reads the online params
-    and BatchNorm statistics, which every layout keeps whole."""
+    and BatchNorm statistics, which every layout keeps whole but the
+    tensor-parallel heads, whose shards ``net``'s heads are cut to."""
+    from byol_tpu_torch.models.byol_net import shard_heads
     device = state.params.device
-    net = net.to(device)
+    net = shard_heads(net, *state.model_axis).to(device)
     net.load_state_dict({**state.tree(state.params), **state.batch_stats()},
                         strict=True)
     represent = frozen_representation_fn(store_in_compute_dtype(net),

@@ -41,6 +41,14 @@ reason :func:`load_converted` and :func:`load_canonical` copy into the
 existing views, in place.  :func:`canonical_state` is the checkpoint's
 tree: each parameter in its own shape, so a checkpoint does not depend on
 the padded layout.
+
+Over a model axis of M > 1 the net's heads are its model index's shards
+(models/byol_net.py::shard_heads), and so are the state's segments of
+them: the :class:`SegmentMap` covers this rank's leaves.
+:func:`canonical_state` gathers every split leaf whole over the model
+group (a collective), so a checkpoint does not depend on M, and
+:func:`load_converted` / :func:`load_canonical` take whole trees and keep
+the rank's slices (parallel/partitioning.py).
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ from byol_tpu_torch.ops.fused_update import (LANES, SegmentMap, pack_flat,
                                              segment_map_for, unpack_flat)
 from byol_tpu_torch.optim.transforms import (COUNT_FIELDS, LBFGS_MEMORY,
                                              STATE_FIELDS)
+from byol_tpu_torch.parallel import partitioning
 
 # the optimizer whose state a tree written before PR 11 holds
 LEGACY_OPTIMIZER = "lars_momentum"
@@ -97,6 +106,8 @@ class TrainState:
     # under --zero1 on: the rank's range (parallel/zero1.py::Zero1Context),
     # and every buffer of ``opt`` but a 'vector' holds that range only
     zero1: Optional[Any] = None
+    # (size, index) of the model axis the net's heads are split over
+    model_axis: Tuple[int, int] = (1, 0)
 
     @property
     def momentum(self) -> torch.Tensor:
@@ -118,6 +129,36 @@ class TrainState:
 
     def batch_stats(self) -> Dict[str, torch.Tensor]:
         return dict(self.net.named_buffers())
+
+    def split_dims(self) -> Dict[str, int]:
+        """``{name: dim}`` of the parameters and running statistics split
+        over the model axis (none at M = 1)."""
+        leaves = [(n, len(s)) for n, s in zip(self.names, self.shapes)]
+        leaves += [(n, b.ndim) for n, b in self.batch_stats().items()]
+        return partitioning.tp_dims(leaves, self.model_axis[0])
+
+    def whole_shapes(self) -> List[torch.Size]:
+        """The parameters' shapes in the whole tree (the split ones times
+        the model axis's size along their dim), in segment order."""
+        dims = self.split_dims()
+        out = []
+        for name, shape in zip(self.names, self.shapes):
+            shape = list(shape)
+            if name in dims:
+                shape[dims[name]] *= self.model_axis[0]
+            out.append(torch.Size(shape))
+        return out
+
+    def model_shards(self) -> Optional["partitioning.ModelShards"]:
+        """The rows a sum over the model axis counts here (None at
+        M = 1)."""
+        if self.model_axis[0] == 1:
+            return None
+        dims = self.split_dims()
+        return partitioning.ModelShards.build(
+            self.seg, [name in dims for name in self.names],
+            self.model_axis[1], self.params.numel() // LANES,
+            self.params.device)
 
 
 def tree_order(names) -> Tuple[str, ...]:
@@ -198,7 +239,8 @@ def create_train_state(net: nn.Module, *, ema_init_mode: str = "copy",
                       opt_counts={c: 0 for c in COUNT_FIELDS.get(
                           optimizer_base(optimizer), ())},
                       ema_step=0 if ema_init_mode == "copy" else 1,
-                      polyak=polyak, polyak_net=polyak_net)
+                      polyak=polyak, polyak_net=polyak_net,
+                      model_axis=tuple(getattr(net, "model_axis", (1, 0))))
 
 
 def _whole_opt(state: TrainState) -> Dict[str, torch.Tensor]:
@@ -247,11 +289,12 @@ def _load(state: TrainState, trees: Mapping[str, Any],
              if kind == "flat"]
     if state.polyak is not None:
         flat.append(("polyak", state.polyak))
+    split = _Split(state)
     for key, buf in flat:
         if key not in trees:
             raise ValueError(f"{what}: the tree has no {key!r}, which this "
                              "state needs")
-        _copy_tree(state.tree(buf), trees[key], f"{what}: {key}")
+        _copy_tree(state.tree(buf), trees[key], f"{what}: {key}", split)
     for name, kind in kinds.items():
         if name not in trees:
             raise ValueError(f"{what}: the tree has no {name!r}, which "
@@ -262,7 +305,7 @@ def _load(state: TrainState, trees: Mapping[str, Any],
             for k, row in enumerate(whole[name]):
                 _copy_tree(state.tree(row), {
                     leaf: v[k] for leaf, v in trees[name].items()},
-                    f"{what}: {name}[{k}]")
+                    f"{what}: {name}[{k}]", split)
     if state.zero1 is not None:
         for name, buf in state.opt.items():
             if kinds[name] != "vector":
@@ -272,7 +315,7 @@ def _load(state: TrainState, trees: Mapping[str, Any],
         raise ValueError(f"{what}: BatchNorm statistics differ at "
                          f"{sorted(set(stats) ^ set(own))}")
     for name, buf in own.items():
-        buf.copy_(stats[name])
+        buf.copy_(split(name, stats[name], buf))
     counts = counters.get("opt_counts", {})
     if set(counts) != set(state.opt_counts):
         raise ValueError(f"{what}: optimizer counts {sorted(counts)}, "
@@ -284,13 +327,32 @@ def _load(state: TrainState, trees: Mapping[str, Any],
     state.ema_step = int(counters["ema_step"])
 
 
+class _Split:
+    """Whole leaves -> this rank's shards of the split ones (the identity
+    at M = 1).  A tree already cut to a shard's shape is not whole: its
+    slice has the wrong shape, and ``_copy_tree`` refuses it."""
+
+    def __init__(self, state: TrainState) -> None:
+        self.dims = state.split_dims()
+        self.size, self.index = state.model_axis
+
+    def __call__(self, name: str, value: Any, view: torch.Tensor) -> Any:
+        dim = self.dims.get(name)
+        if dim is None:
+            return value
+        return partitioning.shard_leaf(torch.as_tensor(value), dim,
+                                       self.size, self.index, name)
+
+
 def _copy_tree(views: Mapping[str, torch.Tensor], src: Mapping[str, Any],
-               what: str) -> None:
+               what: str, split: Optional[_Split] = None) -> None:
     if set(src) != set(views):
         raise ValueError(f"{what} names differ at "
                          f"{sorted(set(src) ^ set(views))[:4]}")
     for name, view in views.items():
         value = src[name]
+        if split is not None:
+            value = split(name, value, view)
         if tuple(value.shape) != tuple(view.shape):
             raise ValueError(f"{what} {name} has shape "
                              f"{tuple(value.shape)}, the state "
@@ -335,17 +397,38 @@ def canonical_state(state: TrainState) -> Dict[str, Any]:
     bufs = [("params", state.params), ("target", state.target)]
     if state.polyak is not None:
         bufs.append(("polyak", state.polyak))
-    # one copy of each whole buffer, then views in the leaves' shapes
+    # one copy of each whole buffer, then views in the leaves' shapes; the
+    # split leaves gathered whole over the model axis, in one order on
+    # every rank
+    dims = state.split_dims()
     for key, buf in bufs:
         out[key] = state.tree(buf.to("cpu", copy=True))
+        _gather_split(out[key], state.tree(buf), dims)
     for name, buf in _whole_opt(state).items():
         host = buf.to("cpu", copy=True)
         out[name] = (state.tree(host) if kinds[name] == "flat" else
                      _stacked_tree(state, host) if kinds[name] == "stacked"
                      else host)
+        if dims and kinds[name] == "flat":
+            _gather_split(out[name], state.tree(buf), dims)
+        elif dims and kinds[name] == "stacked":
+            _gather_split(out[name], _stacked_tree(state, buf), dims, 1)
     out["batch_stats"] = {name: buf.to("cpu", copy=True)
                           for name, buf in state.batch_stats().items()}
+    _gather_split(out["batch_stats"], state.batch_stats(), dims)
     return out
+
+
+def _gather_split(host: Dict[str, torch.Tensor],
+                  device: Mapping[str, torch.Tensor], dims: Mapping[str, int],
+                  offset: int = 0) -> None:
+    """Replace each split leaf of the host tree by the whole leaf,
+    gathered from the device tree's shards (``offset``: leading dims of a
+    stacked tree)."""
+    for name, dim in dims.items():
+        if name in host:
+            host[name] = partitioning.gather_leaf(device[name],
+                                                  dim + offset).cpu()
 
 
 def load_canonical(state: TrainState, tree: Mapping[str, Any]) -> None:

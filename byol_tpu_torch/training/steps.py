@@ -84,6 +84,17 @@ times):
 - the metrics are all-reduced to their global means, and the health
   vector's norms and collapse signature are the global batch's.
 
+Tensor parallel (``--model-parallel`` M > 1): the ranks of a model group
+hold the same rows and the same draws, and the state's heads are their
+shards (models/heads.py), so each rank's forward gives the whole
+projections and predictions and its backward the replicated leaves'
+whole gradients; the data-axis collectives above run over the data group
+(the ranks of one model index).  The unfused chain's per-leaf norms and
+dots and the health vector's norms and counts are summed over the model
+group, each replicated leaf counted once (parallel/partitioning.py::
+ModelShards).  The metrics are the data axis's: the model ranks hold the
+same ones.  ``fused_update`` is refused there, as in JAX.
+
 Without a process group (one card) none of these collectives runs, and the
 step is the one-device step it always was.
 
@@ -99,6 +110,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from byol_tpu_torch.core.config import FUSED_UPDATE_MODEL_PARALLEL
 from byol_tpu_torch.core.precision import FP32, Policy, at_least_fp32
 from byol_tpu_torch.data import device_augment
 from byol_tpu_torch.objectives.byol_loss import loss_function
@@ -224,6 +236,7 @@ def make_train_step(tx: Chain, scfg: StepConfig,
                                              microbatch)
     ema_pre = scfg.ema_update_mode == "reference_pre"
     layout = None                   # the kernels' device-side segment map
+    shards = None                   # the model axis's counted rows (M > 1)
     rank, world = mesh.process_info()
     grouped = mesh.is_initialized()
     synced = world > 1              # global statistics change the arithmetic
@@ -349,7 +362,7 @@ def make_train_step(tx: Chain, scfg: StepConfig,
         """The update and the EMA tick, in place; -> (the trust vector,
         the norm of the update applied: ``lr |m'|`` of the fused kernels'
         ``-lr m'``, the chain's own update's otherwise)."""
-        nonlocal layout
+        nonlocal layout, shards
         z = state.zero1
         if z is not None:
             if scfg.fused_update:
@@ -369,6 +382,7 @@ def make_train_step(tx: Chain, scfg: StepConfig,
         if layout is None or layout.seg is not state.seg:
             layout = fused_lib.FusedLayout.build(
                 state.seg, tx.weight_decay, state.params.device)
+            shards = state.model_shards()
         if scfg.fused_update:
             trust = fused_lib.fused_lars_ema_update_buffers(
                 state.params, state.grads, state.momentum, state.target,
@@ -380,11 +394,14 @@ def make_train_step(tx: Chain, scfg: StepConfig,
         if ema_pre:
             state.target.mul_(tau).add_(state.params, alpha=1.0 - tau)
         u, trust = tx.update(state.params, state.grads, state.opt,
-                             state.opt_counts, lr=lr, layout=layout)
+                             state.opt_counts, lr=lr, layout=layout,
+                             model=shards)
         state.params.add_(u)
         if not ema_pre:
             state.target.mul_(tau).add_(state.params, alpha=1.0 - tau)
-        return trust, lambda: health_lib.global_norm(u)
+        norm = (health_lib.global_norm if shards is None
+                else shards.global_norm)
+        return trust, lambda: norm(u)
 
     def train_step(state: TrainState, batch) -> Metrics:
         if scfg.polyak_ema > 0.0 and state.polyak is None:
@@ -394,6 +411,8 @@ def make_train_step(tx: Chain, scfg: StepConfig,
             raise ValueError(f"the train state holds the state of optimizer "
                              f"{state.optimizer!r}, and the step runs "
                              f"{tx.name!r}")
+        if scfg.fused_update and state.model_axis[0] > 1:
+            raise ValueError(FUSED_UPDATE_MODEL_PARALLEL)
         state.grads.zero_()
         if scfg.accum_steps == 1:
             metrics = forward_backward(state, batch, 0)
@@ -422,14 +441,20 @@ def make_train_step(tx: Chain, scfg: StepConfig,
                 collapse = (metrics.pop("_collapse_feature_std"),
                             metrics.pop("_collapse_cosine_mean"))
                 # under ZeRO-1 the mean gradient and the update live on
-                # the ranks' ranges
-                grad_stats = (state.zero1.grad_stats()
-                              if state.zero1 is not None else None)
+                # the ranks' ranges, under TP on the model ranks' shards
+                grad_stats, norm = None, health_lib.global_norm
+                if state.zero1 is not None:
+                    grad_stats = state.zero1.grad_stats()
+                elif shards is not None:
+                    grad_stats = (shards.global_norm(state.grads),
+                                  shards.nonfinite_count(state.grads))
+                    norm = shards.global_norm
                 metrics["health"] = health_lib.health_stats(
                     grads=state.grads, params=state.params,
                     target_params=state.target, loss=metrics["loss_mean"],
                     collapse=collapse, trust_ratios=trust,
-                    update_norm=update_norm(), grad_stats=grad_stats)
+                    update_norm=update_norm(), grad_stats=grad_stats,
+                    norm=norm)
         if scfg.check_numerics:
             check_finite(state.step, loss=metrics["loss_mean"],
                          params=state.params)

@@ -35,9 +35,10 @@ the host's.
 
 Data parallel, as the JAX trainer runs a multi-host mesh: the world is
 laid out as (data, sequence, model) (parallel/mesh.py::init_mesh), the
-data axis (``num_replicas``) is world / (sequence x model), and the ranks
-of one sequence group hold the same rows and run ring attention across
-them; the compile plan
+data axis (``num_replicas``) is world / (sequence x model), the ranks of
+one sequence group hold the same rows and run ring attention across
+them, and the ranks of one model group hold the same rows and their
+shards of the tensor-parallel heads; the compile plan
 (parallel/compile_plan.py) lays out the state (ZeRO-1) and names itself in
 the run header; rank 0 alone prints, logs, graphs and writes checkpoints,
 every rank restores, and the ranks meet at a barrier around each write;
@@ -68,7 +69,11 @@ Observability, as the JAX trainer wires it (observability/):
   :class:`NanHaltError`;
 - a watchdog (``--watchdog-timeout``) petted around every blocking
   window, and a :class:`StepTimer` for images/s, MFU (the first step's
-  FLOPs counted by ``flops.counting``) and the step-time tail.
+  FLOPs counted by ``flops.counting``, the tensor-parallel heads' counted
+  whole: the model's FLOPs over the world's cards, as JAX divides by
+  ``jax.device_count()``) and the step-time tail;
+- the grapher's ``config`` text at epoch 2 carries the SLURM id, the EC2
+  instance id and the card's environment (utils/), as JAX's does.
 """
 from __future__ import annotations
 
@@ -105,6 +110,8 @@ from byol_tpu_torch.parallel.compile_plan import CompilePlan, plan_from_cfg
 from byol_tpu_torch.parallel.lockstep import any_rank, lockstep_iter
 from byol_tpu_torch.training.build import setup_training
 from byol_tpu_torch.training.state import TrainState
+from byol_tpu_torch.utils import (get_aws_instance_id, get_gpu_env,
+                                  get_slurm_id, number_of_parameters)
 
 EVAL_METRICS = ("loss_mean", "byol_loss_mean", "linear_loss_mean",
                 "top1_mean", "top5_mean")
@@ -296,9 +303,12 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
         _, state, train_step, eval_step, schedule = setup_training(
             rcfg, device, plan=plan)
     if verbose:
+        # the whole tree's count (the split heads' leaves at full shape)
+        whole = number_of_parameters(
+            [torch.empty(s, device="meta") for s in state.whole_shapes()])
         print(f"model: {cfg.model.arch}, {state.seg.num_segments} parameter "
-              f"leaves, {sum(state.seg.sizes) / 1e6:.2f}M params, "
-              f"optimizer={state.optimizer}"
+              f"leaves, {whole / 1e6:.2f}M params (main.py:447-449 "
+              f"analog), optimizer={state.optimizer}"
               + (f" (clip {cfg.optim.clip})" if cfg.optim.clip else "")
               + f", fused_update={cfg.optim.fused_update}, "
               f"half={cfg.device.half}, on {device}", flush=True)
@@ -314,6 +324,8 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
                   f"{rcfg.batch_size_per_replica} rows"
                   + (f", sequence groups of {cfg.device.sequence_parallel}"
                      if cfg.device.sequence_parallel > 1 else "")
+                  + (f", model groups of {cfg.device.model_parallel}"
+                     if cfg.device.model_parallel > 1 else "")
                   + ", zero1="
                   f"{cfg.device.zero1}, flat_resident="
                   f"{cfg.device.flat_resident}", flush=True)
@@ -488,8 +500,11 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
                 flops_lib.counting() as counted:
             metrics = train_step(state, batch)
         if counted.total:
-            # the rank's rows: the count covers this process's work
-            timer.set_flops(counted.total / rcfg.batch_size_per_replica,
+            # the rank's rows: the count covers this process's work, and
+            # the heads' split matmuls are 1/M of the model's
+            model_flops = counted.total + (
+                (cfg.device.model_parallel - 1) * counted.split)
+            timer.set_flops(model_flops / rcfg.batch_size_per_replica,
                             flops_lib.chip_peak_tflops(
                                 torch.cuda.get_device_name(device)
                                 if torch.device(device).type == "cuda"
@@ -607,7 +622,14 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
                      "aug2_imgs": sample_batch["view2"]}, epoch,
                     prefix="train")
             if epoch == 2:
-                grapher.add_text("config", cfg.to_json(), epoch)
+                # config + cluster identity posted once (main.py:773-779;
+                # the reference also stamps the AWS instance id,
+                # main.py:128-130)
+                meta = {"slurm_id": get_slurm_id(),
+                        "aws_instance_id": get_aws_instance_id(),
+                        "gpu": get_gpu_env()}
+                grapher.add_text("config", cfg.to_json() + "\n" + str(meta),
+                                 epoch)
             grapher.save()
 
             watchdog.pet()

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive byol_tpu_torch's serving (in process and over the wire),
 training, input, accumulation, observability, linear-eval, data-parallel,
-optimizer-registry and ViT-training paths once on one CUDA card, and
-check them.
+optimizer-registry, ViT-training and tensor-parallel paths once on one
+CUDA card, and check them.
 
     python3 chip_smoke.py            # from the repository root; one card
 
@@ -103,13 +103,15 @@ Phases (any failure raises, and the script exits nonzero):
    CLI's config and the trainer, once per ``--data-backend`` (``tf``, the
    torch host path on DataLoader workers; ``native``, the C++ pipeline,
    with ``--valid-fraction 0.25``; ``device``, the unfused chain on the
-   card from host draws), then ``--aug-spec paper`` under ``tf`` (2
-   steps) and ``--task synth`` under ``native`` (8 steps, the loss must
+   card from host draws), then ``--aug-spec paper`` under ``tf`` in
+   the main process (2 steps, ``--workers-per-replica 0``: the tf run
+   above spawned the pool) and ``--task synth`` under ``native`` (8
+   steps, the loss must
    fall), counters set to 0 before and read after each run: every loss
    finite, K1a = K1b = one launch per step, K2 none, every train batch
    with view1 != view2 in every row and both in [0, 1], the valid loss
-   once an epoch.  Then 4 timed steps of each backend (tf and native at
-   2 and 6 workers) beside the step placement's K2 path, fed by
+   once an epoch.  Then 4 timed steps of each backend (tf at 2 workers,
+   native at 2 and 6 threads) beside the step placement's K2 path, fed by
    ``prefetch_to_device`` as the trainer is, one turn each, and a
    torch.profiler breakdown of 3 more steps of each on that turn's
    pipeline (images/s, device-busy
@@ -231,16 +233,46 @@ Phases (any failure raises, and the script exits nonzero):
    running statistics bitwise equal to none's, the host bytes that
    ``offload_block_out`` moved.  Sequence > 1 needs a card per rank, so
    it is not run here (its CPU tests run it over gloo);
-14. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
+14. tp — the tensor-parallel heads (``--model-parallel 2``) of
+   ResNet-50 at its published widths (heads 4096/256, 224 px, bf16 over
+   fp32 state, batch 64): ``--task synth --num-synth-samples 192 --arch
+   resnet50 --image-size-override 224 --batch-size 64 --epochs 1
+   --augment-placement step --fused-augment off --fused-update off`` (3
+   steps of the unfused lars_momentum chain, whose LARS norms are the
+   split K1a's).  First the preflight's killable probe on the card.  The
+   model-2 arm: two processes on this one card (NCCL refuses two ranks on
+   one device), each of which makes a gloo process group (a FileStore)
+   and calls the port's CLI entry ``cli.main`` with ``--model-parallel
+   2``, counters set to 0 before and read after: 3 finite losses, equal
+   on both ranks, ``segment_sums`` = ``segment_epilogue`` = 3 launches a
+   rank, K1a, K1b, K2 and K3 none; then on its trained state the bf16
+   step's wall ms (3 steps) on each rank and rank 0's device-busy ms of
+   one profiled step, and each rank's peak memory — NOT the cost of TP on
+   NVLink: two ranks share one card and their collectives go through the
+   host.  The model-1 arm: ``torchrun --standalone --nproc_per_node 1
+   train_torch.py`` with the same flags: exit 0, run header mesh ``model:
+   1`` (the model-2 arm's ``model: 2``), train loss within 3e-2 (bf16) of
+   the model-2 arm's.  Then, in fp32 from the seed under deterministic
+   cuDNN and no warmup, every rank's step-0 head shards bitwise the
+   slices of the model-1 state's leaves, and after one step on the same
+   batch rank 0's
+   gathered canonical tree against the model-1 one within ``TP_TOL``
+   (each leaf's largest difference over its largest magnitude: 1e-5
+   params and target, 1e-3 momentum, 1e-4 BatchNorm statistics; the
+   three Dense biases that feed a BatchNorm, whose gradient is 0 in exact
+   arithmetic, against their key's largest magnitude; the loss at 1e-5);
+   last the model-2 arm's checkpoint (whole leaves) restored
+   into a model-1 state on the card, equal to the tree saved bitwise;
+15. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
    ``{"observe": ...}``, ``{"serving_graph_vs_eager": ..., "wire": ...,
-   "linear_eval": ...}``, ``{"ddp": ...}``, ``{"optim": ...}`` and
-   ``{"vit": ...}`` lines, each phase's seconds, and the ``{"kernels":
-   [...]}`` line (launches on this slice's main path — K1a, K1b and K2 in
-   the vit phase's three runs; the split K1a's entries in the optim
-   phase's chains; K3's over the wire, from graph replays, where it last
-   ran — and per path; the library yardstick of K1a and its split is
-   ``torch._foreach_norm`` over the leaves of p and g), then, last, the
-   ``{"ok": true, "device": ...}`` line.
+   "linear_eval": ...}``, ``{"ddp": ...}``, ``{"optim": ...}``,
+   ``{"vit": ...}`` and ``{"tp": ...}`` lines, each phase's seconds, and
+   the ``{"kernels": [...]}`` line (launches on this slice's main path —
+   the split K1a's entries on the tp phase's two ranks; K1a, K1b and K2
+   in the vit phase's three runs; K3's over the wire, from graph replays,
+   where it last ran — and per path; the library yardstick of K1a and its
+   split is ``torch._foreach_norm`` over the leaves of p and g), then,
+   last, the ``{"ok": true, "device": ...}`` line.
 """
 import json
 import math
@@ -743,15 +775,17 @@ def _read_counters():
     return tuple(kernel_launches().values())
 
 
-def _rn50_segment_map():
+def _rn50_segment_map(shard=(1, 0)):
     """The segment map of the port's ResNet-50 BYOL net (heads 4096/256,
-    10 classes) and its leaves' shapes, from the parameter shapes alone."""
-    from byol_tpu_torch.models.byol_net import BYOLNet
+    10 classes) and its leaves' shapes, from the parameter shapes alone;
+    ``shard`` = (M, i): its heads cut to model index i's shards of M."""
+    from byol_tpu_torch.models.byol_net import BYOLNet, shard_heads
     from byol_tpu_torch.models.registry import get_backbone
     from byol_tpu_torch.ops import fused_update as fu
     from byol_tpu_torch.training.state import tree_order
     backbone, _ = get_backbone("resnet50")
-    params = dict(BYOLNet(backbone, num_classes=10).named_parameters())
+    net = shard_heads(BYOLNet(backbone, num_classes=10), *shard)
+    params = dict(net.named_parameters())
     leaves = [params[n] for n in tree_order(params)]
     return fu.segment_map_for(leaves), [p.shape for p in leaves]
 
@@ -1381,9 +1415,8 @@ def _input_arms(card, model_dir):
     from byol_tpu_torch.training.steps import make_train_step
 
     cuda = torch.device("cuda")
+    # one tf arm: a second pool (6 workers) cost another ~15 s start
     arms = {"tf, 2 workers": ["--data-backend", "tf"],
-            "tf, 6 workers": ["--data-backend", "tf",
-                              "--workers-per-replica", "6"],
             "native, 2 threads": ["--data-backend", "native"],
             "native, 6 threads": ["--data-backend", "native",
                                   "--workers-per-replica", "6"],
@@ -1509,7 +1542,8 @@ def run_input(card):
                                      "evaluated each epoch")
         _, counts["input, tf, paper spec"] = _input_run(
             "--data-backend tf --aug-spec paper",
-            ["--data-backend", "tf", "--aug-spec", "paper", "--epochs", "1"],
+            ["--data-backend", "tf", "--aug-spec", "paper", "--epochs", "1",
+             "--workers-per-replica", "0"],
             os.path.join(root, "paper"), samples=INPUT_SHORT_SAMPLES, steps=2)
         result, counts["input, synth, native"] = _input_run(
             "--task synth --data-backend native --warmup 0",
@@ -3848,6 +3882,462 @@ def run_vit(card):
                     "remat": table, "seconds": parts}
 
 
+TP_ARGV = ["--task", "synth", "--num-synth-samples", "192", "--arch",
+           "resnet50", "--image-size-override", "224", "--batch-size", "64",
+           "--epochs", "1", "--augment-placement", "step",
+           "--fused-augment", "off", "--fused-update", "off",
+           "--workers-per-replica", "0", "--grapher", "jsonl"]
+TP_STEPS = 3                       # 192 synth images at batch 64
+TP_TIMED = 3
+# the fp32 step from the seed, model 2 against model 1, set before the
+# first run: each leaf's largest |difference| over its largest magnitude
+TP_TOL = {"params": 1e-5, "target": 1e-5, "momentum": 1e-3,
+          "batch_stats": 1e-4}
+# the health vector's norms of that step, model 2 against model 1, set
+# before the first run: relative difference (a replicated leaf counted on
+# both model ranks moves them by up to sqrt(2), 41 %)
+TP_HEALTH_TOL = {"grad_norm": 1e-4, "param_norm": 1e-4,
+                 "update_norm": 1e-4, "ema_drift": 1e-4}
+# the Dense biases that feed a BatchNorm: their gradient is 0 in exact
+# arithmetic, so they hold rounding noise, held against their tree key's
+# largest magnitude instead of their own
+ZERO_GRAD = ("projector.dense1.bias", "projector.dense2.bias",
+             "predictor.dense1.bias")
+
+
+def _tp_cfg(extra=()):
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    return config_from_args(build_parser().parse_args(TP_ARGV + list(extra)))
+
+
+def _tp_rcfg(cfg):
+    import dataclasses
+    from byol_tpu_torch.core.config import resolve
+    return resolve(cfg.replace(device=dataclasses.replace(
+        cfg.device, num_replicas=1)), num_train_samples=192,
+        num_test_samples=64, output_size=10, input_shape=(224, 224, 3))
+
+
+def _tp_fp32(model, batch):
+    """The fp32 state of the tp config built from the seed at the laid-out
+    model axis, its step with the health vector on: -> (its split leaves
+    at step 0 on the host, the gathered canonical tree after one step on
+    ``batch``, the step's loss, its health vector by field)."""
+    import torch
+    from byol_tpu_torch.observability import health
+    from byol_tpu_torch.parallel import partitioning
+    from byol_tpu_torch.parallel.compile_plan import plan_from_cfg
+    from byol_tpu_torch.training.build import setup_training
+    # no warmup: the step moves the params (warmup's step 0 has lr 0)
+    cfg = _tp_cfg(["--no-half", "--warmup", "0", "--model-parallel",
+                   str(model), "--telemetry", "step"])
+    plan = plan_from_cfg(cfg, 1)
+    _, state, step, _, _ = setup_training(_tp_rcfg(cfg),
+                                          torch.device("cuda"), plan=plan)
+    tree0 = {**state.tree(state.params), **state.batch_stats()}
+    split = {name: v.to("cpu", copy=True) for name, v in tree0.items()
+             if partitioning.tp_dim(name, v.ndim) is not None}
+    metrics = step(state, batch)
+    return (split, plan.to_canonical(state), float(metrics["loss_mean"]),
+            health.unpack(metrics["health"].cpu()))
+
+
+def _tp_rank(rank, root, card):
+    """One rank of the tp phase's model-2 arm, a process of its own (two
+    share the card, over gloo): (1) the port's CLI entry (``cli.main``)
+    with ``--model-parallel 2`` on a process group made here, counters set
+    to 0 before and read after; (2) its trained state's bf16 step, warm,
+    then timed and profiled on rank 0 (both ranks step: the collectives
+    pair them); (3) the fp32 state from the seed, one step.  Writes
+    ``rank{r}.json``, its step-0 shards and, on rank 0, the fp32 tree."""
+    import torch
+    import torch.distributed as dist
+    from byol_tpu_torch import cli
+    from byol_tpu_torch.core.precision import get_policy
+    from byol_tpu_torch.ops import flash_attention as fa
+    from byol_tpu_torch.parallel import mesh
+    from byol_tpu_torch.training import trainer
+    from byol_tpu_torch.training.build import build_tx, step_config
+    from byol_tpu_torch.training.steps import make_train_step
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def join(name):
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(root, name), 2),
+            rank=rank, world_size=2)
+    out = {}
+    join("store_cli")
+    fitted, fit = {}, trainer.fit
+
+    def keep(*args, **kwargs):
+        fitted["result"] = fit(*args, **kwargs)
+        return fitted["result"]
+    trainer.fit = keep
+    torch.cuda.reset_peak_memory_stats()
+    _zero_ddp_counters()
+    t0 = time.perf_counter()
+    out["rc"] = cli.main(TP_ARGV + [
+        "--model-parallel", "2", "--model-dir", os.path.join(root, "m2"),
+        "--log-dir", os.path.join(root, "l2")])
+    out["cli_s"] = time.perf_counter() - t0
+    out["counts"] = list(_ddp_counters()) + [fa.LAUNCHES]
+    out["fit_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    result = fitted["result"]
+    out["losses"] = result.step_losses
+    out["test_loss"] = result.test_metrics["loss_mean"]
+    # the layout the split K1a ran on: (segments, elements)
+    out["layout"] = [result.state.seg.num_segments, result.state.seg.total]
+    # main() left the group when it returned: a second one for the rest
+    join("store_rest")
+    mesh.init_mesh(1, 2)
+    state = result.state
+    rcfg = _tp_rcfg(_tp_cfg(["--model-parallel", "2"]))
+    tx, schedule = build_tx(rcfg)
+    step = make_train_step(tx, step_config(rcfg), schedule, get_policy(True))
+    batch = _ddp_batches(1)[0]
+    step(state, batch)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(TP_TIMED):
+        step(state, batch)
+    torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t0) * 1e3 / TP_TIMED
+    if rank == 0:
+        prof = _device_profile(
+            lambda: step(state, batch), 1, card,
+            "resnet50 train step at model 2 (rank 0; the other rank on the "
+            "same card, collectives through the host), batch 64, per step",
+            top=6, host=False)
+        out["busy_ms"], out["kinds"] = prof["busy_ms"], prof["kinds"]
+    else:
+        step(state, batch)
+        torch.cuda.synchronize()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, result, fitted, step
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    split, tree, out["loss32"], out["health32"] = _tp_fp32(2, batch)
+    torch.save(split, os.path.join(root, f"shards{rank}.pt"))
+    if rank == 0:
+        torch.save(tree, os.path.join(root, "tree32_m2.pt"))
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _tp_children(root, card):
+    """The model-2 arm: two ranks of ``_tp_rank`` on this card.  -> their
+    outputs, in rank order."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, LOCAL_RANK="0", PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke._tp_rank("
+         f"{r}, {root!r}, {card!r})"], cwd=here, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        for line in log.strip().splitlines()[-14:]:
+            print(f"tp: rank {r} | {line[:200]}", flush=True)
+        if p.returncode != 0:
+            raise AssertionError(f"tp: rank {r} exited {p.returncode}")
+    outs = []
+    for r in range(2):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def _tp_torchrun(root):
+    """The model-1 arm: ``torchrun --standalone --nproc_per_node 1
+    train_torch.py`` with the tp config.  -> (wall s, its run log)."""
+    import glob
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "train_torch.py", *TP_ARGV,
+           "--model-parallel", "1", "--model-dir", os.path.join(root, "m1"),
+           "--log-dir", os.path.join(root, "l1")]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    for line in out.strip().splitlines()[-6:]:
+        print(f"tp: torchrun | {line[:200]}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"tp: torchrun exited {proc.returncode}")
+    (log,) = glob.glob(os.path.join(root, "l1", "*", "run.jsonl"))
+    return wall, log
+
+
+def _tp_log(log):
+    """(mesh_shape, train loss_mean) of a run log."""
+    from byol_tpu_torch.observability.events import read_events
+    events = list(read_events(log))
+    train = [e for e in events if e["kind"] == "epoch"
+             and e.get("split") == "train"]
+    return events[0]["mesh_shape"], train[-1]["metrics"]["loss_mean"]
+
+
+def _leaf_errors(got, want, tol):
+    """Per tree key, the largest over its leaves of each leaf's max
+    |difference| over its max magnitude (a ``ZERO_GRAD`` leaf's over its
+    key's largest); -> (errors, leaves past tol)."""
+    errs, bad = {}, []
+    for key, limit in tol.items():
+        worst = 0.0
+        top = max(w.abs().max().item() for w in want[key].values())
+        for name, w in want[key].items():
+            g = got[key][name]
+            if g.shape != w.shape:
+                raise AssertionError(f"tp: {key} {name} shape "
+                                     f"{tuple(g.shape)} vs {tuple(w.shape)}")
+            scale = (top if name in ZERO_GRAD
+                     else w.abs().max().item()) or 1.0
+            err = (g.double() - w.double()).abs().max().item() / scale
+            worst = max(worst, err)
+            if err > limit:
+                bad.append(f"{key} {name} {err:.3g}")
+        errs[key] = worst
+    return errs, bad
+
+
+def _tp_segment_sums(card, path_layout):
+    """The split K1a's ``segment_sums`` at a model rank's layout of the tp
+    path (ResNet-50 with its heads cut to model index 0's shards of 2:
+    the rank's whole buffer, 173 segments; index 1's has the same shapes)
+    against its plain version, with the tp config's weight decay.
+    ``path_layout``: [segments, elements] of the model-2 arm's state,
+    which this layout must be.  -> its kernel-line numbers."""
+    import torch
+    from byol_tpu_torch.ops import fused_update as fu
+    from byol_tpu_torch.training.build import build_tx
+    seg, _ = _rn50_segment_map((2, 0))
+    if [seg.num_segments, seg.total] != list(path_layout):
+        raise AssertionError(f"tp: the model-2 layout here is "
+                             f"{[seg.num_segments, seg.total]}, the path's "
+                             f"{path_layout}")
+    tx, _ = build_tx(_tp_rcfg(_tp_cfg()))
+    lay = fu.FusedLayout.build(seg, tx.weight_decay, "cuda")
+    real = torch.zeros(seg.total, dtype=torch.bool, device="cuda")
+    for start, size in zip(seg.starts, seg.sizes):
+        real[start:start + size] = True
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    p, g = (torch.randn(seg.total, device="cuda", generator=gen) * k * real
+            for k in (0.05, 1e-3))
+    sums = fu.segment_sums(p, g, lay)
+    ref = fu.segment_sums_reference(p, g, lay)
+    err = (sums - ref).abs().max().item()
+    rel = ((sums - ref).abs() / ref.abs().clamp_min(1e-300)).max().item()
+    ok = torch.allclose(sums, ref, rtol=1e-5, atol=0.0)
+    bounds = lay.seg_row_start.tolist()
+    pieces = [x.view(-1, fu.LANES)[a:b].reshape(-1) for x in (p, g)
+              for a, b in zip(bounds[:-1], bounds[1:])]
+    ms = _device_ms(lambda: fu.segment_sums(p, g, lay))
+    plain = _device_ms(lambda: fu.segment_sums_reference(p, g, lay))
+    library = _device_ms(lambda: torch._foreach_norm(pieces))
+    bound = (2 * 4 * lay.total + 16 * seg.num_segments) \
+        / HBM_BYTES_PER_S * 1e3
+    shape = (f"model index 0 of 2, {lay.rows} rows, {seg.num_segments} "
+             f"segments")
+    print(f"tp: segment_sums at {shape} (wd {tx.weight_decay}): against its "
+          f"plain version max |err| {err:.3g}, max rel {rel:.3g} (rtol "
+          f"1e-5: {ok}); {ms:.4f} ms graph, plain {plain:.4f}, "
+          f"_foreach_norm {library:.4f}, bound {bound:.4f} (bytes) [{card}]",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"tp: segment_sums disagrees with its plain "
+                             f"version at the model-2 layout: {rel}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                library_ms=library, max_abs_err=err, max_rel_err=rel, ok=ok,
+                shape=shape)
+
+
+def run_tp(card):
+    """Tensor-parallel heads on this card: the preflight's probe; the
+    model-2 arm (two processes over gloo through ``cli.main``) and the
+    model-1 arm (``torchrun --nproc_per_node 1 train_torch.py``) of the tp
+    config; the launches of the split K1a on the tp path, and its
+    ``segment_sums`` at the path's layout against its plain version; the
+    fp32 step from the seed at model 2 against model 1, its health
+    vector's norms included; the model-2 checkpoint restored at model 1.
+    -> (launches per rank, row, segment_sums' kernel-line numbers)."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+    from byol_tpu_torch.checkpoint.checkpointer import CheckpointStore
+    from byol_tpu_torch.core.preflight import preflight_backend
+    from byol_tpu_torch.parallel import mesh, partitioning
+    from byol_tpu_torch.parallel.compile_plan import plan_from_cfg
+    from byol_tpu_torch.training.build import setup_training
+    from byol_tpu_torch.training.state import canonical_state
+    if mesh.is_initialized():
+        raise AssertionError("tp: a process group is left from a phase")
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    parts, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        parts[name] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+    try:
+        ok = preflight_backend()
+        lap("preflight")
+        print(f"tp: the preflight probe on the card returned {ok} in "
+              f"{parts['preflight']} s [{card}]", flush=True)
+        if not ok:
+            raise AssertionError("tp: the preflight probe failed")
+        ranks = _tp_children(root, card)
+        lap("model-2 arm")
+        counts = [r["counts"] for r in ranks]
+        for r, o in enumerate(ranks):
+            print(f"tp: rank {r}: cli.main rc {o['rc']} in {o['cli_s']:.1f}"
+                  f" s, losses {o['losses']}, test loss {o['test_loss']:.4f}"
+                  f", launches (segment_norms, fused_apply, two_view, "
+                  f"segment_sums, segment_epilogue, flash) = {o['counts']}; "
+                  f"bf16 step wall {o['wall_ms']:.2f} ms ({TP_TIMED} steps)"
+                  + (f", device busy {o['busy_ms']:.2f} ms" if r == 0
+                     else "")
+                  + f"; peak {o['fit_peak_gb']:.2f} GB in the fit, "
+                  f"{o['peak_gb']:.2f} GB with the timed steps [{card}]",
+                  flush=True)
+        print("tp: NOT the cost of TP on NVLink: both ranks share this one "
+              "card and their collectives go through the host (gloo)",
+              flush=True)
+        want = [0, 0, 0, TP_STEPS, TP_STEPS, 0]
+        if any(c != want for c in counts) or any(
+                len(o["losses"]) != TP_STEPS
+                or not all(map(math.isfinite, o["losses"]))
+                for o in ranks):
+            raise AssertionError(f"tp: launches {counts} (want {want} a "
+                                 f"rank), losses "
+                                 f"{[o['losses'] for o in ranks]}")
+        if ranks[0]["losses"] != ranks[1]["losses"]:
+            raise AssertionError("tp: the model ranks' losses differ")
+        sums_row = _tp_segment_sums(card, ranks[0]["layout"])
+        lap("segment_sums check")
+        wall1, log1 = _tp_torchrun(root)
+        lap("model-1 arm")
+        (log2,) = glob.glob(os.path.join(root, "l2", "*", "run.jsonl"))
+        (mesh1, loss1), (mesh2, loss2) = _tp_log(log1), _tp_log(log2)
+        loss_ok = abs(loss2 - loss1) <= 3e-2 * abs(loss1)
+        print(f"tp: torchrun --nproc_per_node 1 train_torch.py rc 0 in "
+              f"{wall1:.1f} s, mesh {mesh1}, train loss {loss1:.6f}; the "
+              f"model-2 arm's mesh {mesh2}, train loss {loss2:.6f} (bf16, "
+              f"rtol 3e-2: {loss_ok}) [{card}]", flush=True)
+        if not (loss_ok and mesh1["model"] == 1 and mesh2["model"] == 2):
+            raise AssertionError(f"tp: model-1 arm {mesh1} {loss1}, "
+                                 f"model-2 arm {mesh2} {loss2}")
+        # the fp32 step from the seed at model 1, in this process
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            split1, tree1, loss32, health1 = _tp_fp32(1, _ddp_batches(1)[0])
+        finally:
+            torch.backends.cudnn.deterministic = False
+        shards_ok = True
+        for r in range(2):
+            got = torch.load(os.path.join(root, f"shards{r}.pt"))
+            for name, shard in got.items():
+                dim = partitioning.tp_dim(name, shard.ndim)
+                shards_ok = shards_ok and torch.equal(
+                    shard, partitioning.shard_leaf(split1[name], dim, 2, r))
+        tree2 = torch.load(os.path.join(root, "tree32_m2.pt"))
+        errs, bad = _leaf_errors(tree2, tree1, TP_TOL)
+        loss32_err = abs(ranks[0]["loss32"] - loss32) / abs(loss32)
+        print(f"tp: fp32 from the seed: every rank's step-0 head shards the "
+              f"slices of the model-1 tree bitwise {shards_ok}; after one "
+              f"step, model 2's gathered tree against model 1's, each "
+              f"leaf's max |diff| over its max |value|, worst per key "
+              f"{ {k: f'{v:.3g}' for k, v in errs.items()} } (tolerances "
+              f"{TP_TOL}), loss {ranks[0]['loss32']:.7f} vs {loss32:.7f} "
+              f"(rel {loss32_err:.2g}) [{card}]", flush=True)
+        health2 = ranks[0]["health32"]
+        health_err = {k: abs(health2[k] - health1[k]) / abs(health1[k])
+                      for k in TP_HEALTH_TOL}
+        health_bad = [k for k, v in health_err.items()
+                      if not v <= TP_HEALTH_TOL[k]]
+        ranks_equal = ranks[0]["health32"] == ranks[1]["health32"]
+        rel = {k: f"{v:.3g}" for k, v in health_err.items()}
+        print(f"tp: fp32 health vector after that step, model 2 against "
+              f"model 1, relative: {rel} (tolerances {TP_HEALTH_TOL}; model 2 "
+              f"{ {k: health2[k] for k in TP_HEALTH_TOL} }, model 1 "
+              f"{ {k: health1[k] for k in TP_HEALTH_TOL} }); the two "
+              f"model ranks' vectors equal {ranks_equal} [{card}]",
+              flush=True)
+        if not shards_ok or bad or loss32_err > 1e-5 or health_bad \
+                or not ranks_equal:
+            raise AssertionError(f"tp: fp32 shards {shards_ok}, past "
+                                 f"tolerance {bad[:8]}, loss {loss32_err}, "
+                                 f"health past tolerance {health_bad}, "
+                                 f"ranks' health equal {ranks_equal}")
+        del tree1, tree2
+        lap("fp32 check")
+        # the model-2 checkpoint restored at model 1 on the card
+        (run_dir,) = glob.glob(os.path.join(root, "m2", "*"))
+        store = CheckpointStore(run_dir)
+        tree, epoch = store.restore(best=False)
+        store.close()
+        cfg = _tp_cfg()
+        plan = plan_from_cfg(cfg, 1)
+        _, state, _, _, _ = setup_training(_tp_rcfg(cfg),
+                                           torch.device("cuda"), plan=plan)
+        plan.from_canonical(state, tree)
+        restored = _trees_bitwise(canonical_state(state), tree)
+        whole = tree["params"]["projector.dense1.weight"].shape
+        print(f"tp: the model-2 checkpoint (epoch {epoch}, step "
+              f"{tree['step']}, projector.dense1.weight {tuple(whole)}) "
+              f"restored at model 1 on the card, equal to the tree saved "
+              f"bitwise {restored} [{card}]", flush=True)
+        if not restored or tree["step"] != TP_STEPS:
+            raise AssertionError(f"tp: restore {restored}, step "
+                                 f"{tree['step']}")
+        del state, tree
+        lap("restore at model 1")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"tp: seconds by part {parts}", flush=True)
+    row = {"ranks": [{k: o[k] for k in ("losses", "counts", "wall_ms",
+                                        "fit_peak_gb", "peak_gb", "cli_s")}
+                     for o in ranks],
+           "rank0_busy_ms": ranks[0]["busy_ms"],
+           "rank0_kinds": ranks[0]["kinds"],
+           "not_nvlink": "two ranks on one card, collectives through the "
+                         "host (gloo)",
+           "model1_torchrun_s": wall1, "train_loss": [loss1, loss2],
+           "fp32_leaf_errors": errs, "fp32_tol": TP_TOL,
+           "fp32_health_rel_errors": health_err,
+           "fp32_health_tol": TP_HEALTH_TOL,
+           "shards_bitwise": shards_ok, "restored_at_model_1": restored,
+           "seconds": parts}
+    return counts, row, sums_row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3902,6 +4392,11 @@ def main() -> int:
     ddp_counts, ddp_rows, ddp_row = phase("ddp", run_ddp, card)
     optim_counts, optim_row = phase("optim", run_optim, card)
     vit_counts, vit_row = phase("vit", run_vit, card)
+    tp_counts, tp_row, tp_sums = phase("tp", run_tp, card)
+    # this slice's main path: the model-2 arm's two ranks (counts a rank:
+    # segment_norms, fused_apply, two_view, segment_sums, segment_epilogue,
+    # flash)
+    tp = [sum(c[i] for c in tp_counts) for i in range(6)]
 
     main_row = next(r for r in flash_rows
                     if r["shape"] == [64, HEADS, SEQ, 64]
@@ -3919,7 +4414,7 @@ def main() -> int:
             "serving (graph replays)": serving_launches,
             "linear_eval": le_counts[0], "observe": observe_counts[0],
             "accum": accum_counts[0], "training": train_counts[0],
-            "vit": sum(c[0] for c in vit_counts.values())},
+            "vit": sum(c[0] for c in vit_counts.values()), "tp": tp[5]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                            if r["dtype"] == "bfloat16"),
         "ms": main_row["ms"],
@@ -3946,7 +4441,7 @@ def main() -> int:
     def by_path(i, j):
         """A kernel's launches on each training path (and 0 on the served
         ones); ``j`` its index among the ddp phase's counters."""
-        paths = {"vit": vit[i]}
+        paths = {"tp": tp[j], "vit": vit[i]}
         paths.update({name: c[i] for name, c in vit_paths.items()})
         paths.update(ddp_paths(j))
         paths.update({"linear_eval": le_counts[i], "wire": 0, "serving": 0,
@@ -3984,17 +4479,23 @@ def main() -> int:
         "shape": [64, 224, 224, 3],
         "ok": all(r["ok"] for r in k2_rows)})
     # K1a split: its own entries, which the ZeRO-1 fused update and every
-    # LARS and LAMB chain call; this slice's main path is the optim
-    # phase's chains
+    # LARS and LAMB chain call; this slice's main path is the tp phase's
+    # model-2 arm (one of each a step on each of its two ranks), and
+    # segment_sums' numbers are at that path's layout, the ZeRO-1 range's
+    # beside them (the epilogue's 173 segments are the same on both)
     for name, j, i in (("segment_sums", 3, 1), ("segment_epilogue", 4, 2)):
         row = ddp_rows[name]
+        if name == "segment_sums":
+            row = dict(tp_sums, zero1_range=row)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "byol_tpu_torch/ops/csrc/fused_update.cu",
             "replaces": "byol_tpu/ops/fused_update.py:198 (the ZeRO-1 "
                         "call at :417)",
-            "launches": optim_counts[i],
-            "launches_by_path": dict(ddp_paths(j), optim=optim_counts[i]),
+            "launches": tp[j],
+            "launches_by_path": dict(ddp_paths(j), optim=optim_counts[i],
+                                     tp=tp[j]),
+            "tp_launches_per_rank": [c[j] for c in tp_counts],
             **row})
     print(json.dumps({"input_arms": input_rows}), flush=True)
     print(json.dumps({"accum": accum_row}), flush=True)
@@ -4004,6 +4505,7 @@ def main() -> int:
     print(json.dumps({"ddp": ddp_row}), flush=True)
     print(json.dumps({"optim": optim_row}), flush=True)
     print(json.dumps({"vit": vit_row}), flush=True)
+    print(json.dumps({"tp": tp_row}), flush=True)
     print(f"phases, s: {phases}; total since start "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
 """The port stands alone: no module of byol_tpu_torch/, and not
-chip_smoke.py, imports JAX, flax, optax, orbax, tensorstore, TensorFlow or
-the JAX package."""
+chip_smoke.py or train_torch.py, imports JAX, flax, optax, orbax,
+tensorstore, TensorFlow or the JAX package."""
 import ast
 from pathlib import Path
 
@@ -8,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "byol_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "train_torch.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
              "tensorflow", "byol_tpu"}
 
@@ -34,12 +34,17 @@ def test_the_scan_sees_the_package():
 def test_the_scan_sees_the_parallel_modules():
     parallel = ROOT / "byol_tpu_torch" / "parallel"
     for name in ("mesh", "collectives", "lockstep", "zero1", "flat_state",
-                 "compile_plan", "ring_attention"):
+                 "compile_plan", "ring_attention", "partitioning"):
         assert parallel / f"{name}.py" in FILES, name
 
 
 def test_the_scan_sees_the_remat_module():
     assert ROOT / "byol_tpu_torch" / "core" / "remat.py" in FILES
+
+
+def test_the_scan_sees_the_utils_and_the_launcher():
+    assert ROOT / "byol_tpu_torch" / "utils" / "__init__.py" in FILES
+    assert (ROOT / "train_torch.py").exists()
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -196,13 +196,14 @@ def test_refusals_name_their_reasons():
     assert _resolve(unfused.replace(device=dataclasses.replace(
         cfg.device, zero1="on", flat_resident="on"))).cfg.optim.optimizer \
         == "lamb"
-    # the sequence axis and remat are ported; the TP heads and a DCN axis
-    # stay refused
-    for flags in (["--sequence-parallel", "2"], ["--remat"]):
+    # the sequence axis, remat and the TP heads are ported; a DCN axis
+    # stays refused
+    for flags in (["--sequence-parallel", "2"], ["--remat"],
+                  ["--model-parallel", "2"]):
         parsed = config_from_args(build_parser().parse_args(
             ["--batch-size", "16"] + flags))
         assert _resolve(parsed).cfg == parsed
-    for flags in (["--model-parallel", "2"], ["--dcn-data-parallel", "2"]):
+    for flags in (["--dcn-data-parallel", "2"],):
         parsed = config_from_args(build_parser().parse_args(
             ["--batch-size", "16"] + flags))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -309,10 +309,9 @@ RESOLVE_224 = dict(num_train_samples=8192, num_test_samples=10,
 
 @pytest.mark.parametrize("overrides", [
     # --zero1 on and --flat-resident on are ported (parallel/), with and
-    # without the fused update, and so are remat and the sequence axis;
-    # what stays refused: a DCN data axis and the TP heads
-    dict(device=dict(dcn_data_parallel=2)),
-    dict(device=dict(model_parallel=2))])
+    # without the fused update, and so are remat, the sequence axis and
+    # the TP heads; what stays refused: a DCN data axis
+    dict(device=dict(dcn_data_parallel=2))])
 def test_resolve_refuses_what_is_not_ported(overrides):
     cfg = _overridden(torch_config, overrides)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -322,7 +321,8 @@ def test_resolve_refuses_what_is_not_ported(overrides):
 @pytest.mark.parametrize("overrides", [
     dict(model=dict(remat_policy="save_block_out")),
     dict(model=dict(remat_policy="dots")), dict(model=dict(remat=True)),
-    dict(device=dict(sequence_parallel=2))])
+    dict(device=dict(sequence_parallel=2)),
+    dict(device=dict(model_parallel=2))])
 def test_resolve_accepts_remat_and_sequence_parallel(overrides):
     want = jax_config.resolve(_overridden(jax_config, overrides),
                               **RESOLVE_224)

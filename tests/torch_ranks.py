@@ -156,20 +156,25 @@ def tiny_state(converted=None, *, canonical=None, polyak_ema=0.0,
                zero1=False, flat_resident=False, bucket_mb=64,
                optimizer="lars_momentum", dtype=torch.float32, vit=None):
     """The tiny net's train state at this rank (the tiny ViT's with
-    ``vit``, :func:`tiny_vit_net`'s keywords), laid out by the plan over
-    the data axis, holding ``converted`` (``convert.train_state_from_flax``)
-    or a ``canonical`` tree."""
-    from byol_tpu_torch.parallel import mesh
+    ``vit``, :func:`tiny_vit_net`'s keywords), its heads cut to the
+    laid-out model axis's shards, laid out by the plan over the data
+    axis, holding a whole ``converted`` (``convert.train_state_from_flax``)
+    or ``canonical`` tree."""
+    from byol_tpu_torch.models.byol_net import shard_heads
+    from byol_tpu_torch.parallel import mesh, partitioning
     from byol_tpu_torch.parallel.compile_plan import build_plan
     from byol_tpu_torch.training.state import (create_train_state,
                                                load_converted)
+    size, index = partitioning.model_axis()
     plan = build_plan(mesh.process_info()[1], zero1=zero1,
-                      flat_resident=flat_resident, bucket_mb=bucket_mb)
+                      flat_resident=flat_resident, bucket_mb=bucket_mb,
+                      model=size)
     net = tiny_net(dtype) if vit is None else tiny_vit_net(dtype, **vit)
-    state = create_train_state(
-        net.double() if dtype == torch.float64 else net,
-        polyak_ema=polyak_ema, pad_rows_to=plan.pad_rows_to,
-        optimizer=optimizer)
+    net = shard_heads(net.double() if dtype == torch.float64 else net,
+                      size, index)
+    state = create_train_state(net, polyak_ema=polyak_ema,
+                               pad_rows_to=plan.pad_rows_to,
+                               optimizer=optimizer)
     plan.prepare(state, weight_decay=WD)
     if canonical is not None:
         plan.from_canonical(state, canonical)
@@ -206,6 +211,9 @@ def train(spec):
         optimizer, base_lr=spec.get("base_lr", BASE_LR),
         global_batch_size=LR_BATCH, weight_decay=WD, total_units=TOTAL,
         warmup_units=0, clip=spec.get("clip", 0.0))
+    # this rank's shards of the split leaves before the first step
+    local0 = {name: state.tree(state.params)[name].clone()
+              for name in state.split_dims() if name in state.names}
     draw = None
     if spec.get("draws") is not None:
         table = spec["draws"]
@@ -232,10 +240,40 @@ def train(spec):
         store = CheckpointStore(spec["save_to"])
         store.save(0, tree)
         store.close()
-    return {"metrics": metrics, "state": tree,
+    return {"metrics": metrics, "state": tree, "local0": local0,
             "opt_numel": {k: v.numel() for k, v in state.opt.items()},
             "momentum_numel": (state.momentum.numel()
                                if "momentum" in state.opt else None)}
+
+
+def restore(spec):
+    """The tiny net's state at this rank restored from the checkpoint
+    under ``spec['load_from']`` (its optimizer ``spec['optimizer']``): ->
+    its canonical tree and this rank's shards of the split leaves."""
+    from byol_tpu_torch.checkpoint.checkpointer import CheckpointStore
+    from byol_tpu_torch.parallel import mesh
+    mesh.barrier()                      # rank 0's write is complete
+    store = CheckpointStore(spec["load_from"])
+    tree, _ = store.restore()
+    store.close()
+    state, plan = tiny_state(canonical=tree, dtype=spec["dtype"],
+                             optimizer=spec.get("optimizer",
+                                                "lars_momentum"))
+    return {"state": plan.to_canonical(state),
+            "local": {name: state.tree(state.params)[name].clone()
+                      for name in state.split_dims()
+                      if name in state.names}}
+
+
+def mesh_error(spec):
+    """The error laying the world out as ``spec['layout']`` (sequence,
+    model) raises (None: it did not)."""
+    from byol_tpu_torch.parallel import mesh
+    try:
+        mesh.init_mesh(*spec["layout"])
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def fit_cli(spec):
@@ -428,16 +466,18 @@ def step_inputs(spec):
 
 def multi(spec):
     """Several jobs in one world, in order: ``spec['parts']`` = [(job,
-    sub-spec)], each at the mesh of its ``sequence`` (default 1)."""
+    sub-spec)], each at the mesh of its ``sequence`` and ``model``
+    (default 1)."""
     from byol_tpu_torch.parallel import mesh
     results = []
     for job, sub in spec["parts"]:
-        mesh.init_mesh(sub.get("sequence", 1))
+        mesh.init_mesh(sub.get("sequence", 1), sub.get("model", 1))
         results.append(JOBS[job](sub))
     return results
 
 
-JOBS = {"train": train, "fit_cli": fit_cli, "fit_sigterm": fit_sigterm,
+JOBS = {"train": train, "restore": restore, "mesh_error": mesh_error,
+        "fit_cli": fit_cli, "fit_sigterm": fit_sigterm,
         "linear_eval": linear_eval,
         "lockstep": lockstep, "gather": gather, "bn_stats": bn_stats,
         "ring": ring, "ring_error": ring_error, "step_inputs": step_inputs,
@@ -455,7 +495,7 @@ def main(argv):
         world_size=world, timeout_s=120.0)
     try:
         spec = torch.load(spec_path, weights_only=False)
-        mesh.init_mesh(spec.get("sequence", 1))
+        mesh.init_mesh(spec.get("sequence", 1), spec.get("model", 1))
         result = JOBS[job](spec)
         torch.save(result, out)
     finally:
