@@ -16,10 +16,18 @@ checkpoint.  :meth:`epochs`, :meth:`save`, :meth:`restore`, :meth:`wait`
 and :meth:`close` wait for the write in flight; a write that failed raises
 there.
 
-A ``ckpt-<epoch>`` directory without ``state.pt`` is not this store's: the
-JAX package writes orbax checkpoints under the same names (a run of the
-same flags has the same run name).  The store refuses such a directory
-with an error naming it, before it deletes or writes anything.
+The JAX package writes orbax checkpoints under the same names (a run of
+the same flags has the same run name), and the store reads them too: a
+committed orbax ``ckpt-<epoch>`` (``_CHECKPOINT_METADATA`` and
+``manifest.ocdbt``) counts as an epoch, and :meth:`restore` of it returns
+``convert.train_state_from_flax``'s tree (checkpoint/orbax.py reads it
+without JAX; ``optimizer`` names the chain its optax state must match).
+The store never writes into, prunes or replaces an orbax checkpoint: its
+own checkpoint of an epoch an orbax one holds goes to
+``ckpt-<epoch>.torch/``, which shadows it.  A ``ckpt-<epoch>`` that is
+neither (an uncommitted orbax write, or a directory neither package
+wrote) is refused with an error naming it, before anything is deleted or
+written.
 """
 from __future__ import annotations
 
@@ -32,11 +40,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from byol_tpu_torch.checkpoint import orbax
 from byol_tpu_torch.observability.events import sanitize
 
-_STEP_RE = re.compile(r"^ckpt-(\d+)$")
+_STEP_RE = re.compile(r"^ckpt-(\d+)(\.torch)?$")
 _META = "meta.json"
 _STATE = "state.pt"
+_SHADOW = ".torch"          # the port's checkpoint beside an orbax one
+TORCH, ORBAX = "torch", "orbax"
 
 # meta.json is strict JSON: non-finite metrics are written as strings by
 # events.sanitize and read back as floats, under the keys that hold floats
@@ -58,14 +69,20 @@ def _meta_restore(obj: Any, key: Optional[str] = None) -> Any:
 
 class CheckpointStore:
     """``ckpt-<epoch>/state.pt`` checkpoints and ``meta.json`` under
-    ``directory``."""
+    ``directory``, beside the JAX package's orbax ``ckpt-<epoch>``.
+    ``optimizer`` (the run's registry name) is the chain an orbax
+    checkpoint's optimizer state is read as."""
 
-    def __init__(self, directory: str) -> None:
+    def __init__(self, directory: str, *,
+                 optimizer: str = "lars_momentum") -> None:
         self.directory = os.path.abspath(directory)
+        self.optimizer = optimizer
         os.makedirs(self.directory, exist_ok=True)
         self._writer = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="checkpoint_writer")
         self._pending: Optional[concurrent.futures.Future] = None
+        # what the last orbax read took (orbax.read_tree's stats), or None
+        self.last_read: Optional[Dict[str, Any]] = None
         self.epochs()                 # refuse a foreign directory now
 
     # -- metadata ----------------------------------------------------------
@@ -96,25 +113,48 @@ class CheckpointStore:
         if pending is not None:
             pending.result()
 
-    def epochs(self) -> Tuple[int, ...]:
-        """The epochs on disk, in order.  Raises ValueError on a
-        ``ckpt-<epoch>`` directory this store did not write."""
+    def _scan(self) -> Dict[int, Tuple[str, str]]:
+        """``{epoch: (path, kind)}`` on disk, the port's checkpoint where
+        both packages hold the epoch.  Raises ValueError on a
+        ``ckpt-<epoch>`` neither package committed."""
         self.wait()
-        out = []
-        for name in os.listdir(self.directory):
+        found: Dict[int, Tuple[str, str]] = {}
+        for name in sorted(os.listdir(self.directory)):
             m = _STEP_RE.match(name)
             if not m:
                 continue
             path = os.path.join(self.directory, name)
-            if not os.path.isfile(os.path.join(path, _STATE)):
-                held = sorted(os.listdir(path))[:4]
+            epoch = int(m.group(1))
+            if os.path.isfile(os.path.join(path, _STATE)):
+                found[epoch] = (path, TORCH)
+                continue
+            if not m.group(2) and orbax.is_committed(path):
+                found.setdefault(epoch, (path, ORBAX))
+                continue
+            held = sorted(os.listdir(path))[:4]
+            if not m.group(2) and orbax.looks_like_orbax(path):
                 raise ValueError(
-                    f"{path} is not a byol_tpu_torch checkpoint (no "
-                    f"{_STATE}; it holds {held}: an orbax checkpoint of the "
-                    "JAX package has the same name); move it away or use "
-                    "another --model-dir or --uid")
-            out.append(int(m.group(1)))
-        return tuple(sorted(out))
+                    f"{path} is an uncommitted orbax write (no "
+                    f"{orbax.COMMIT_MARKER} and {orbax.MANIFEST}; it holds "
+                    f"{held}); move it away or use another --model-dir or "
+                    "--uid")
+            else:
+                raise ValueError(
+                    f"{path} is not a checkpoint of either package (no "
+                    f"{_STATE}, and not an orbax checkpoint; it holds "
+                    f"{held}); move it away or use another --model-dir or "
+                    "--uid")
+        return found
+
+    def epochs(self) -> Tuple[int, ...]:
+        """The epochs on disk, in order, of either package.  Raises
+        ValueError on a ``ckpt-<epoch>`` directory neither wrote."""
+        return tuple(sorted(self._scan()))
+
+    def kind(self, epoch: int) -> str:
+        """``'torch'`` or ``'orbax'``: which package wrote the epoch's
+        checkpoint (KeyError when there is none)."""
+        return self._scan()[epoch][1]
 
     def save(self, epoch: int, tree: Any, *, metric: Optional[float] = None,
              is_best: bool = False, keep: int = 2) -> None:
@@ -138,6 +178,10 @@ class CheckpointStore:
 
     def _write(self, epoch: int, tree: Any) -> None:
         final = self._path(epoch)
+        # never into an orbax checkpoint, and once shadowed always shadowed
+        # (a later ckpt-<epoch> would be read after the shadow)
+        if orbax.looks_like_orbax(final) or os.path.isdir(final + _SHADOW):
+            final += _SHADOW
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)   # a crashed earlier write
         os.makedirs(tmp)
@@ -157,16 +201,27 @@ class CheckpointStore:
             os.replace(tmp, final)
 
     def _prune(self, keep: int) -> None:
+        """Delete the port's old non-best checkpoints; orbax ones are the
+        JAX package's and are never deleted."""
         best = self.read_meta().get("best_epoch")
-        eps = [e for e in self.epochs() if e != best]
+        found = self._scan()
+        eps = [e for e in sorted(found) if e != best]
         for e in eps[:-keep] if keep else eps:
-            shutil.rmtree(self._path(e))
+            path, kind = found[e]
+            if kind == TORCH:
+                shutil.rmtree(path)
 
-    def restore(self, epoch: Optional[int] = None, *, best: bool = False
-                ) -> Tuple[Dict[str, Any], int]:
+    def restore(self, epoch: Optional[int] = None, *, best: bool = False,
+                weights_only: bool = False) -> Tuple[Dict[str, Any], int]:
         """``(tree, epoch)`` of the last checkpoint, the best with
-        ``best``, or exactly ``epoch`` when given."""
-        eps = self.epochs()
+        ``best``, or exactly ``epoch`` when given, whichever package
+        wrote it.  The port's checkpoint gives its canonical tree; an
+        orbax one ``convert.train_state_from_flax``'s (both load through
+        ``CompilePlan.from_canonical``).  With ``weights_only`` the tree
+        is ``{"params", "batch_stats"}`` (torch names) and an orbax
+        checkpoint's other leaves are not read."""
+        found = self._scan()
+        eps = tuple(sorted(found))
         if epoch is None:
             meta = self.read_meta()
             epoch = meta.get("best_epoch") if best else meta.get("last_epoch")
@@ -197,9 +252,34 @@ class CheckpointStore:
                             scored, key=lambda e: history[e])
         # an explicitly requested epoch is never substituted: a missing one
         # raises FileNotFoundError here
-        tree = torch.load(os.path.join(self._path(epoch), _STATE),
-                          map_location="cpu", weights_only=True)
+        if epoch not in found:
+            raise FileNotFoundError(f"no checkpoint of epoch {epoch} under "
+                                    f"{self.directory}")
+        path, kind = found[epoch]
+        self.last_read = None
+        if kind == ORBAX:
+            return self._read_orbax(path, weights_only), int(epoch)
+        tree = torch.load(os.path.join(path, _STATE), map_location="cpu",
+                          weights_only=True)
+        if weights_only:
+            tree = {"params": tree["params"],
+                    "batch_stats": tree["batch_stats"]}
         return tree, int(epoch)
+
+    def _read_orbax(self, path: str, weights_only: bool) -> Dict[str, Any]:
+        from byol_tpu_torch.convert import (_split_params_and_buffers,
+                                            from_flax, train_state_from_flax)
+        stats: Dict[str, Any] = {}
+        if weights_only:
+            params, batch_stats = orbax.read_weights(path, stats=stats)
+            online, buffers = _split_params_and_buffers(
+                from_flax(params, batch_stats))
+            tree = {"params": online, "batch_stats": buffers}
+        else:
+            tree = train_state_from_flax(
+                orbax.read_train_state(path, self.optimizer, stats=stats))
+        self.last_read = stats
+        return tree
 
     def close(self) -> None:
         """Wait for the write in flight (raising its error) and stop the

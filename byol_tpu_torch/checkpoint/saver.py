@@ -22,8 +22,9 @@ from byol_tpu_torch.checkpoint.checkpointer import CheckpointStore
 class ModelSaver:
     def __init__(self, directory: str, *, early_stop: bool = False,
                  burn_in_interval: int = 0, larger_is_better: bool = False,
-                 max_early_stop_steps: int = 10, keep: int = 2) -> None:
-        self.store = CheckpointStore(directory)
+                 max_early_stop_steps: int = 10, keep: int = 2,
+                 optimizer: str = "lars_momentum") -> None:
+        self.store = CheckpointStore(directory, optimizer=optimizer)
         self.early_stop = early_stop
         self.burn_in_interval = burn_in_interval
         self.larger_is_better = larger_is_better

@@ -115,10 +115,16 @@ class CompilePlan:
         return canonical_state(state)
 
     def from_canonical(self, state, tree: Mapping[str, Any]) -> None:
-        """Load a layout-free tree into ``state``, in place; under ZeRO-1
-        each rank keeps its range of the optimizer's state."""
-        from byol_tpu_torch.training.state import load_canonical
-        load_canonical(state, tree)
+        """Load a layout-free tree into ``state``, in place: a
+        :func:`canonical_state` tree, or ``convert.train_state_from_flax``'s
+        (a JAX checkpoint's, which has ``buffers`` and no ``format``).
+        Under ZeRO-1 each rank keeps its range of the optimizer's state."""
+        from byol_tpu_torch.training.state import (load_canonical,
+                                                   load_converted)
+        if "format" not in tree and "buffers" in tree:
+            load_converted(state, tree)
+        else:
+            load_canonical(state, tree)
 
 
 def build_plan(world: int = 1, *, zero1: bool = False,

@@ -31,10 +31,12 @@ flags it keeps.  Net-defining flags: --arch, --attn-impl, --pooling,
                           exits nonzero (there is no silent CPU fallback)
 
     --checkpoint DIR      restore the encoder from a training run of the
-                          port: DIR is ``<model-dir>/<run name>``, the
-                          directory holding ``ckpt-N/`` and ``meta.json``;
-                          the net-defining flags must match the training
-                          run's.  Without it the encoder is random-init
+                          port or of the JAX package (its orbax
+                          checkpoints; only their params and batch_stats
+                          are read): DIR is ``<model-dir>/<run name>``,
+                          the directory holding ``ckpt-N/`` and
+                          ``meta.json``; the net-defining flags must match
+                          the training run's.  Without it the encoder is random-init
                           from --seed (embeddings are meaningless; compute
                           is identical), and a line says so
     --restore-best        the best-metric checkpoint, not the last
@@ -47,7 +49,6 @@ flags it keeps.  Net-defining flags: --arch, --attn-impl, --pooling,
                           written at exit; default
                           <--log-dir>/serve_trace.json, 'off' records none
 
-Reading the JAX package's orbax checkpoints is a later slice (ROADMAP.md).
 Without --smoke the process serves until SIGTERM/SIGINT, then drains:
 /readyz flips to 503 at once, --drain-grace-s elapses, accepted requests
 complete, the listener closes, and the service stops — every accepted
@@ -89,8 +90,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
     s = p.add_argument_group("serving")
     s.add_argument("--checkpoint", type=str, default="",
                    help="checkpoint directory of a training run of the "
-                        "port (<model-dir>/<run name>, holding ckpt-N/ and "
-                        "meta.json); empty = random-init encoder "
+                        "port or of the JAX package (<model-dir>/<run "
+                        "name>, holding ckpt-N/ and meta.json); empty = "
+                        "random-init encoder "
                         "(smoke/bench only)")
     s.add_argument("--restore-best", action="store_true",
                    help="restore the best-metric checkpoint, not the last")

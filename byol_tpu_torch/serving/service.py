@@ -13,10 +13,10 @@ fill ratio and the latency tail.
 
 :func:`build_service` is the startup path: rebuild the encoder from a
 Config, load its weights from one of the port's training checkpoints
-(:func:`restore_params_for_serving`), from a flax parameter tree through
+(:func:`restore_params_for_serving`, the port's checkpoints or the JAX
+package's orbax ones), from a flax parameter tree through
 ``convert.from_flax``, or draw random weights from the seed, and hand it
-to the engine.  Reading the JAX package's orbax checkpoints is not ported
-(ROADMAP.md, section 1 item 1).
+to the engine.
 """
 from __future__ import annotations
 
@@ -247,15 +247,24 @@ def restore_params_for_serving(cfg, checkpoint_dir: str, *,
 
     The checkpoint is read on the host and everything but the forward
     pass's weights is dropped there: the optimizer's state and the EMA
-    target never reach the card."""
+    target never reach the card.  Of the JAX package's orbax checkpoint
+    only the ``params`` and ``batch_stats`` leaves are read, and a line
+    says how many of its keys and bytes that took."""
     from byol_tpu_torch.checkpoint import CheckpointStore
     from byol_tpu_torch.training.build import build_net
 
     store = CheckpointStore(checkpoint_dir)
     try:
-        tree, at_epoch = store.restore(epoch=epoch, best=best)
+        tree, at_epoch = store.restore(epoch=epoch, best=best,
+                                       weights_only=True)
     finally:
         store.close()
+    if store.last_read is not None:
+        r = store.last_read
+        print(f"serve: read the orbax checkpoint of epoch {at_epoch}: "
+              f"{r['keys_read']} of {r['keys_total']} keys, "
+              f"{r['bytes_read'] / 1e6:.1f} MB in {r['seconds']:.2f}s "
+              "(params and batch_stats only)", flush=True)
     weights = {**tree["params"], **tree["batch_stats"]}
     del tree
     net = build_net(_serving_rcfg(cfg, num_classes))

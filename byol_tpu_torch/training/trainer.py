@@ -258,7 +258,8 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
         early_stop=cfg.optim.early_stop,
         burn_in_interval=int(0.1 * cfg.task.epochs),
         larger_is_better=False,
-        max_early_stop_steps=10)
+        max_early_stop_steps=10,
+        optimizer=cfg.optim.optimizer)
     # best effort: an unopenable log directory or a full disk disables the
     # log with a warning, never the run
     plan = plan_from_cfg(cfg, cfg.device.num_replicas)
@@ -399,9 +400,13 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
                 init_epoch -= 1
                 resume_skip = done_in_epoch
         if verbose:
+            jax_read = saver.store.last_read
             print(f"resumed from the checkpoint of epoch {saved_epoch} at "
                   f"step {state.step} "
-                  f"(best loss {saver.best_metric}"
+                  + (f"(the JAX package's orbax checkpoint, "
+                     f"{jax_read['bytes_read'] / 1e6:.1f} MB read in "
+                     f"{jax_read['seconds']:.2f}s) " if jax_read else "")
+                  + f"(best loss {saver.best_metric}"
                   + (f", re-entering epoch {init_epoch} at batch "
                      f"{resume_skip}" if resume_skip else "") + ")",
                   flush=True)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive byol_tpu_torch's serving (in process and over the wire),
-training, input, accumulation, observability, linear-eval, data-parallel,
+training, checkpoint (its own and the JAX package's orbax checkpoints),
+input, accumulation, observability, linear-eval, data-parallel,
 optimizer-registry, ViT-training and tensor-parallel paths once on one
 CUDA card, and check them.
 
@@ -97,6 +98,24 @@ Phases (any failure raises, and the script exits nonzero):
    no kernel launched, a bucket-8 batch against the trained state's
    ``frozen_representation_fn`` at 3e-2 in bf16, and no more than the
    parameters and statistics held on the card);
+6b. orbax — the JAX package's orbax checkpoints, read without JAX: g++
+   builds the zstd decoder; (a) the committed fixture JAX wrote (the tiny
+   ResNet, level-1 chunks, leaves sharded over 8 host devices): every
+   leaf's SHA-256 against orbax's restore, the decoder's MB/s on a
+   committed level-1 frame of float32 weights, and the run resumed one
+   step on the card (K2, K1a, K1b once each); (b) a full-width ResNet-50
+   TrainState of the checkpoint phase's flags in orbax's layout
+   (``orbax_fixture.py``: JAX's checkpoint of epoch 1 at step 12), read
+   back by the store into a state on the card bitwise, counters
+   included, then ``python -m byol_tpu_torch`` resumes it in a
+   subprocess: epoch 1 re-entered at batch 4, 4 steps with K2 = K1a =
+   K1b = 4 launches, its own checkpoint in ``ckpt-1.torch/`` and JAX's
+   ``ckpt-1`` untouched; (c) a full-width ViT-B/16 TrainState served by
+   ``serve --arch vit_b16 --attn-impl flash --checkpoint`` (reading only
+   params and batch_stats), and its embeddings bitwise those of the same
+   weights through the port's own store, K3 from graph replays; the
+   ``{"orbax": ...}`` line (build s, each read's s, MB and MB/s, keys
+   read against the total);
 7. input — the slice's command under loader placement, ``--task fake
    --arch resnet50 --image-size-override 224 --batch-size 64 --epochs 2
    --fused-update on`` (256 images: 2 epochs of 4 steps), through the
@@ -150,7 +169,7 @@ Phases (any failure raises, and the script exits nonzero):
    and device-busy ms of 1 profiled step with telemetry 'step' at
    interval 1, beside the accum phase's numbers, and the health vector
    alone; at batch 64 (the training phase's config) off, epoch, step at
-   interval 1 and at 50, 5 steps each in turns and 3 profiled.  Last
+   interval 1 and at 50, 3 steps each in turns and 1 profiled.  Last
    ``--nan-policy halt`` at batch 64 under loader placement (fp32 views
    made on the card): a NaN in view1 row 0 of step 2's batch must raise
    NanHaltError for step 2 with ``halt``, ``state_dump`` and a goodput
@@ -196,7 +215,7 @@ Phases (any failure raises, and the script exits nonzero):
    K2 in the step), the net built once from the seed; each of the 14
    chains (rmsprop, adam, adadelta, sgd, momentum, lamb, lbfgs, bare and
    as ``lars_<base>``) and sgd and lars_lamb at ``--clip 0.01``, from the
-   same state, takes 3 steps on the same batches (no warmup; the adaptive
+   same state, takes 2 steps on the same batches (no warmup; the adaptive
    bases at lr 1e-3, the rest at the recipe's 0.2), every launch counter
    set to 0
    before the first chain and read after the last: losses finite, K2 one
@@ -267,10 +286,11 @@ Phases (any failure raises, and the script exits nonzero):
    ``{"observe": ...}``, ``{"serving_graph_vs_eager": ..., "wire": ...,
    "linear_eval": ...}``, ``{"ddp": ...}``, ``{"optim": ...}``,
    ``{"vit": ...}`` and ``{"tp": ...}`` lines, each phase's seconds, and
-   the ``{"kernels": [...]}`` line (launches on this slice's main path —
-   the split K1a's entries on the tp phase's two ranks; K1a, K1b and K2
-   in the vit phase's three runs; K3's over the wire, from graph replays,
-   where it last ran — and per path; the library yardstick of K1a and its
+   the ``{"kernels": [...]}`` line (launches on this slice's main path,
+   the orbax phase — K1a, K1b and K2 in the resume of JAX's ResNet-50
+   checkpoint, K3 from the graph replays of the ViT-B/16 served from
+   JAX's checkpoint; the split K1a's on the tp phase's two ranks, where
+   it last ran — and per path; the library yardstick of K1a and its
    split is ``torch._foreach_norm`` over the leaves of p and g), then,
    last, the ``{"ok": true, "device": ...}`` line.
 """
@@ -1326,6 +1346,422 @@ def run_checkpoint(card):
     return counts1, counts2
 
 
+# the orbax phase: the JAX package's checkpoints read without JAX
+ORBAX_FIXTURE = os.path.join("tests", "fixtures", "orbax_jax_tiny")
+ORBAX_STEP = 12                    # JAX's checkpoint of epoch 1, mid-epoch
+ORBAX_SAMPLE = os.path.join("tests", "fixtures", "zstd_sample",
+                            "float32_level1")
+ORBAX_DECODE_REPS = 40             # decodes of the sample, timed
+# ``python -m byol_tpu_torch`` with the kernels' launch counts printed at
+# exit (the counters live in the process that launches)
+ORBAX_SHIM = (
+    "import json, runpy\n"
+    "from byol_tpu_torch.serving.engine import kernel_launches\n"
+    "try:\n"
+    "    runpy.run_module('byol_tpu_torch', run_name='__main__',"
+    " alter_sys=True)\n"
+    "finally:\n"
+    "    print('launches ' + json.dumps(list(kernel_launches().values())),"
+    " flush=True)\n")
+
+
+def _listing(path):
+    """{file: sha256} under ``path``."""
+    import hashlib
+    out = {}
+    for d, _, files in os.walk(path):
+        for f in files:
+            full = os.path.join(d, f)
+            with open(full, "rb") as fh:
+                out[os.path.relpath(full, path)] = hashlib.sha256(
+                    fh.read()).hexdigest()
+    return out
+
+
+def _jax_layout(net, seed, step, count):
+    """A JAX TrainState of ``net`` in orbax's tree: its seeded params and
+    statistics in flax's layout, the EMA target near them and a momentum
+    trace from ``seed``, ``step`` = ``ema_step``; -> (tree, the port's
+    expected canonical contents)."""
+    import numpy as np
+    from byol_tpu_torch.checkpoint import orbax_fixture
+    from byol_tpu_torch.convert import _split_params_and_buffers, from_flax
+    rng = np.random.default_rng(seed)
+    sd = {k: v.detach().float().numpy()
+          for k, v in net.state_dict().items()}
+    params, stats = orbax_fixture.to_flax(sd)
+
+    def like(tree, scale, base):
+        return {k: like(v, scale, base) if isinstance(v, dict) else
+                (v * base + scale * rng.standard_normal(
+                    v.shape, dtype=np.float32)).astype(np.float32)
+                for k, v in tree.items()}
+    target, momentum = like(params, 1e-3, 1.0), like(params, 1e-4, 0.0)
+    tree = orbax_fixture.train_state_tree(params, stats, target, momentum,
+                                          step=step, ema_step=step,
+                                          count=count)
+    online, buffers = _split_params_and_buffers(from_flax(params, stats))
+    want = {"params": online, "batch_stats": buffers,
+            "target": from_flax(target), "momentum": from_flax(momentum),
+            "step": step, "ema_step": step, "count": count}
+    return tree, want
+
+
+def _canonical_equals(got, want):
+    import torch
+    for key in ("params", "target", "momentum", "batch_stats"):
+        if set(got[key]) != set(want[key]):
+            return False
+        if not all(torch.equal(got[key][n].cpu(), want[key][n])
+                   for n in want[key]):
+            return False
+    return all(got[k] == want[k] for k in ("step", "ema_step", "count"))
+
+
+def _orbax_fixture(card, root):
+    """(a) The committed JAX-written fixture: every leaf against orbax's
+    digests, the decoder's rate on its level-1 chunks, and its run
+    resumed for one step on the card (K2, K1a, K1b once each)."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+    import torch
+    from byol_tpu_torch.checkpoint import CheckpointStore, ocdbt, orbax, zstd
+    from byol_tpu_torch.models import resnet as torch_resnet
+    from byol_tpu_torch.models.byol_net import BYOLNet
+    from byol_tpu_torch.models.layers import init_params
+    from byol_tpu_torch.optim.factory import build_optimizer
+    from byol_tpu_torch.parallel.compile_plan import build_plan
+    from byol_tpu_torch.training import steps as torch_steps
+    from byol_tpu_torch.training.state import (canonical_state,
+                                               create_train_state)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(here, ORBAX_FIXTURE)
+    run_dir = os.path.join(root, "fixture_run")
+    shutil.copytree(os.path.join(src, "run"), run_dir)
+    ckpt = os.path.join(run_dir, "ckpt-0")
+    with open(os.path.join(src, "leaf_sha256.json")) as f:
+        digests = json.load(f)
+    tree = orbax.read_tree(ckpt)
+
+    def flat(node, path=()):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield from flat(v, path + (str(k),))
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                yield from flat(v, path + (str(i),))
+        elif node is not None:
+            yield ".".join(path), np.asarray(node)
+    leaves = dict(flat(tree))
+    bad = [n for n, a in leaves.items()
+           if n not in digests or hashlib.sha256(a.tobytes()).hexdigest()
+           != digests[n]["sha256"]]
+    store = ocdbt.OcdbtStore(ckpt)
+    chunks = [k for k in store.keys() if not k.endswith(b"/.zarray")]
+    multi = sum(k.endswith(b"/1") for k in chunks)
+    # the decoder's rate: the committed level-1 frame of 256 KiB of float32
+    # weights (Huffman literals in 4 streams, FSE sequences), decoded
+    # into one buffer, and the fixture's 1142 small chunks (per-call cost)
+    with open(os.path.join(here, ORBAX_SAMPLE + ".zst"), "rb") as f:
+        sample = f.read()
+    with open(os.path.join(here, ORBAX_SAMPLE + ".json")) as f:
+        sample_meta = json.load(f)
+    out = np.empty(sample_meta["bytes"], np.uint8)
+    zstd.decompress(sample, out)
+    sample_ok = hashlib.sha256(out).hexdigest() == sample_meta["sha256"]
+    t0 = time.perf_counter()
+    for _ in range(ORBAX_DECODE_REPS):
+        zstd.decompress(sample, out)
+    decode_mb_s = out.nbytes * ORBAX_DECODE_REPS / (
+        time.perf_counter() - t0) / 1e6
+    frames = list(store.read_many(chunks).values())
+    # (orbax's chunks need not declare their size: one decode sizes them)
+    outs = [np.empty(len(zstd.decompress(fr)), np.uint8) for fr in frames]
+    t0 = time.perf_counter()
+    for fr, o in zip(frames, outs):
+        zstd.decompress(fr, o)
+    per_chunk_us = (time.perf_counter() - t0) / len(frames) * 1e6
+    print(f"orbax: fixture {ORBAX_FIXTURE}: {len(leaves)} leaves against "
+          f"orbax's digests, {len(bad)} differ; {len(chunks)} chunks, "
+          f"{multi} leaves of several chunks, decoded at {per_chunk_us:.1f} "
+          f"us a chunk; the level-1 sample ({len(sample)} -> {out.nbytes} "
+          f"bytes, digest ok {sample_ok}) decoded at {decode_mb_s:.1f} MB/s "
+          f"on the host (x{ORBAX_DECODE_REPS})", flush=True)
+    if bad or len(leaves) != len(digests) or not multi or not sample_ok:
+        raise AssertionError(f"orbax: the fixture's leaves {bad[:4]} differ "
+                             "from orbax's restore")
+
+    # its run resumed on the card: the tiny net of the fixture
+    cuda = torch.device("cuda")
+    backbone = torch_resnet.ResNet(stage_sizes=[1, 1],
+                                   block_cls=torch_resnet.Bottleneck,
+                                   width=8, small_inputs=True,
+                                   zero_init_residual=False)
+    net = BYOLNet(backbone, num_classes=10, head_latent_size=32,
+                  projection_size=16)
+    init_params(net, torch.Generator().manual_seed(1))
+    state = create_train_state(net.to(cuda))
+    plan = build_plan(1)
+    plan.prepare(state, weight_decay=1e-3)
+    store = CheckpointStore(run_dir)
+    restored, epoch = store.restore()
+    store.close()
+    plan.from_canonical(state, restored)
+    same = _canonical_equals(canonical_state(state),
+                             dict(restored, batch_stats=restored["buffers"]))
+    tx, sched = build_optimizer("lars_momentum", base_lr=2.0,
+                                global_batch_size=8, weight_decay=1e-3,
+                                total_units=24, warmup_units=0)
+    step = torch_steps.make_train_step(tx, torch_steps.StepConfig(
+        total_train_steps=24, fused_update=True, augment_in_step=True,
+        fused_augment=True, image_size=16), sched)
+    images = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (8, 16, 16, 3), dtype=np.uint8)).to(cuda)
+    labels = torch.arange(8, device=cuda) % 10
+    _zero_counters()
+    loss = float(step(state, {"images": images, "label": labels})[
+        "loss_mean"])
+    torch.cuda.synchronize()
+    counts = _read_counters()
+    print(f"orbax: fixture resumed on the card: epoch {epoch}, step "
+          f"{restored['step']} -> {state.step}, restored state bitwise "
+          f"{same}, loss {loss:.4f}, launches (flash, segment_norms, "
+          f"fused_apply, two_view) = {counts} [{card}]", flush=True)
+    if not (same and math.isfinite(loss) and state.step == restored["step"]
+            + 1 and counts == (0, 1, 1, 1)):
+        raise AssertionError("orbax: the fixture's resume is wrong")
+    return {"leaves": len(leaves), "chunks": len(chunks),
+            "multi_chunk_leaves": multi, "digests_equal": not bad,
+            "decode_mb_s": decode_mb_s, "decode_us_per_chunk": per_chunk_us,
+            "resumed_step": state.step, "loss": loss, "launches": counts}
+
+
+def _orbax_resnet50(card, root):
+    """(b) A full-width ResNet-50 default-config TrainState in orbax's
+    layout under the checkpoint phase's run name (JAX's checkpoint of
+    epoch 1 at step 12, mid-epoch): read back bitwise into the port's
+    state, then ``python -m byol_tpu_torch`` resumes it in a subprocess
+    and trains the rest of the epoch (4 steps of K2, K1a and K1b)."""
+    import dataclasses
+
+    import torch
+    from byol_tpu_torch.checkpoint import CheckpointStore, orbax_fixture
+    from byol_tpu_torch.cli import build_parser, config_from_args
+    from byol_tpu_torch.core.config import resolve, run_name
+    from byol_tpu_torch.parallel.compile_plan import build_plan
+    from byol_tpu_torch.training.build import build_net, setup_training
+    from byol_tpu_torch.training.state import canonical_state
+
+    argv = CKPT_ARGV + ["--model-dir", os.path.join(root, "models"),
+                        "--log-dir", os.path.join(root, "logs")]
+    cfg = config_from_args(build_parser().parse_args(argv))
+    run_dir = os.path.join(cfg.model.model_dir, run_name(cfg))
+    rcfg = resolve(cfg.replace(device=dataclasses.replace(
+        cfg.device, num_replicas=1)), num_train_samples=512,
+        num_test_samples=128, output_size=10, input_shape=(224, 224, 3))
+    tree, want = _jax_layout(build_net(rcfg), 7, ORBAX_STEP, ORBAX_STEP)
+    t0 = time.perf_counter()
+    info = orbax_fixture.write_run(run_dir, 1, tree, metric=2.5)
+    write_s = time.perf_counter() - t0
+    del tree
+    ckpt = os.path.join(run_dir, "ckpt-1")
+    before = _listing(ckpt)
+
+    # the trainer's restore path in this process: the store, then the plan
+    _, state, _, _, _ = setup_training(rcfg, "cuda")
+    store = CheckpointStore(run_dir, optimizer=cfg.optim.optimizer)
+    t0 = time.perf_counter()
+    restored, epoch = store.restore()
+    read_s = time.perf_counter() - t0
+    read = store.last_read
+    store.close()
+    build_plan(1).from_canonical(state, restored)
+    same = _canonical_equals(canonical_state(state), want)
+    mb = read["bytes_read"] / 1e6
+    print(f"orbax: ResNet-50 TrainState in orbax's layout: "
+          f"{info['array_bytes'] / 1e6:.1f} MB of arrays, {info['keys']} "
+          f"keys, written in {write_s:.2f}s; read by the store in "
+          f"{read_s:.2f}s ({read['seconds']:.2f}s in orbax.read_tree, "
+          f"{mb:.1f} MB, {mb / read['seconds']:.1f} MB/s), epoch {epoch}, "
+          f"step {restored['step']}; restored state == written arrays "
+          f"bitwise (counters included): {same} [{card}]", flush=True)
+    del state, restored
+    torch.cuda.empty_cache()
+    if not same or epoch != 1:
+        raise AssertionError("orbax: the ResNet-50 restore is not bitwise")
+
+    # the user's command, resuming JAX's checkpoint in a subprocess
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", ORBAX_SHIM, *argv],
+                            cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    for line in lines:
+        if line.startswith(("resumed", "epoch", "done", "launches")):
+            print(f"orbax: resume | {line[:220]}", flush=True)
+    counts = tuple(json.loads(next(
+        (ln for ln in lines if ln.startswith("launches ")),
+        "launches null")[len("launches "):]) or ())
+    k = 16 - ORBAX_STEP
+    store = CheckpointStore(run_dir)
+    eps, kind = store.epochs(), store.kind(1)
+    saved, _ = store.restore()
+    store.close()
+    untouched = _listing(ckpt) == before
+    resumed = any(ln.startswith(f"resumed from the checkpoint of epoch 1 "
+                                f"at step {ORBAX_STEP} (the JAX package's")
+                  and f"re-entering epoch 1 at batch {ORBAX_STEP - 8}" in ln
+                  for ln in lines)
+    print(f"orbax: resume subprocess rc {proc.returncode} in {wall:.1f}s, "
+          f"launches (flash, segment_norms, fused_apply, two_view) = "
+          f"{counts}; the store then holds epochs {eps}, epoch 1 the "
+          f"{kind} checkpoint at step {saved['step']} "
+          f"({sorted(os.listdir(run_dir))}); JAX's ckpt-1 untouched: "
+          f"{untouched} [{card}]", flush=True)
+    if not (proc.returncode == 0 and resumed and counts == (0, k, k, k)
+            and kind == "torch" and saved["step"] == 16 and untouched):
+        for line in lines[-20:]:
+            print(f"orbax: resume | {line[:220]}", flush=True)
+        raise AssertionError("orbax: resuming the JAX checkpoint failed")
+    return counts, {"array_mb": info["array_bytes"] / 1e6, "keys":
+                    info["keys"], "write_s": write_s, "read_s": read_s,
+                    "read_mb": mb, "read_mb_s": mb / read["seconds"],
+                    "restored_bitwise": same, "resume_wall_s": wall,
+                    "resume_launches": counts, "jax_ckpt_untouched":
+                    untouched}
+
+
+def _orbax_vit(card, root):
+    """(c) A full-width ViT-B/16 TrainState in orbax's layout: ``serve
+    --arch vit_b16 --attn-impl flash --checkpoint`` answers a few
+    requests, reading only params and batch_stats; its embeddings
+    bitwise those of the same weights through the port's own store; K3
+    from graph replays."""
+    import numpy as np
+    from byol_tpu_torch.checkpoint import CheckpointStore, orbax_fixture
+    from byol_tpu_torch.serving import cli as serve_cli
+    from byol_tpu_torch.serving.service import (ServeConfig, _serving_rcfg,
+                                                build_service)
+    from byol_tpu_torch.training.build import build_net
+
+    serve_argv = ["--arch", "vit_b16", "--attn-impl", "flash",
+                  "--image-size-override", "224"]
+    scfg = serve_cli.config_from_args(
+        serve_cli.build_serve_parser().parse_args(serve_argv))
+    net = build_net(_serving_rcfg(scfg, 10))
+    tree, want = _jax_layout(net, 11, 30, 30)
+    del net
+    jax_dir, port_dir = (os.path.join(root, "vit_jax"),
+                         os.path.join(root, "vit_port"))
+    t0 = time.perf_counter()
+    info = orbax_fixture.write_run(jax_dir, 0, tree, metric=1.0)
+    write_s = time.perf_counter() - t0
+    del tree
+    store = CheckpointStore(port_dir)
+    store.save(0, {"params": want["params"],
+                   "batch_stats": want["batch_stats"]})
+    store.close()
+    store = CheckpointStore(jax_dir)
+    t0 = time.perf_counter()
+    store.restore(weights_only=True)
+    read_s = time.perf_counter() - t0
+    read = store.last_read
+    store.close()
+    mb = read["bytes_read"] / 1e6
+    print(f"orbax: ViT-B/16 TrainState in orbax's layout: "
+          f"{info['array_bytes'] / 1e6:.1f} MB of arrays, written in "
+          f"{write_s:.2f}s; serving's read: {read['keys_read']} of "
+          f"{read['keys_total']} keys, {mb:.1f} MB in {read_s:.2f}s "
+          f"({mb / read['seconds']:.1f} MB/s) [{card}]", flush=True)
+    _zero_counters()
+    rc = serve_cli.main(serve_argv + [
+        "--checkpoint", jax_dir, "--smoke", "8", "--max-batch", "8",
+        "--log-dir", os.path.join(root, "serve_logs")])
+    print(f"orbax: serve --arch vit_b16 --attn-impl flash --checkpoint "
+          f"<JAX run> --smoke 8: rc {rc}, wrapper launches "
+          f"{_read_counters()}", flush=True)
+    if rc != 0:
+        raise AssertionError("orbax: serving the JAX checkpoint failed")
+    rows = np.random.RandomState(5).rand(8, 224, 224, 3).astype(np.float32)
+    got, k3 = {}, 0
+    for name, directory in (("orbax", jax_dir), ("port", port_dir)):
+        with build_service(scfg, ServeConfig(min_bucket=8, max_bucket=8),
+                           checkpoint_dir=directory,
+                           device="cuda") as service:
+            _check_captures(service.engine, "orbax")
+            replays0 = dict(service.engine.describe()["replays"])
+            _zero_counters()
+            got[name] = [service.embed(rows[i:i + 4], timeout=300)
+                         for i in (0, 4)]
+            if _read_counters() != (0, 0, 0, 0):
+                raise AssertionError(f"orbax: launches outside the graphs "
+                                     f"{_read_counters()}")
+            if name == "orbax":
+                k3 = _k3_replayed(service.engine, replays0)
+    bitwise = all(np.array_equal(a, b)
+                  for a, b in zip(got["orbax"], got["port"]))
+    finite = all(np.isfinite(a).all() and a.shape == (4, 768)
+                 for a in got["orbax"])
+    print(f"orbax: served from the JAX checkpoint vs the same weights "
+          f"through the port's store: bitwise {bitwise}, finite {finite}; "
+          f"flash_attention launches {k3} from graph replays [{card}]",
+          flush=True)
+    if not (bitwise and finite and k3 > 0):
+        raise AssertionError("orbax: served embeddings disagree")
+    return k3, {"array_mb": info["array_bytes"] / 1e6, "write_s": write_s,
+                "read_s": read_s, "read_mb": mb,
+                "read_mb_s": mb / read["seconds"],
+                "keys_read": read["keys_read"],
+                "keys_total": read["keys_total"], "bitwise": bitwise,
+                "flash_launches": k3}
+
+
+def run_orbax(card):
+    """The orbax phase: the decoder's build, (a) the committed fixture,
+    (b) a full-width ResNet-50 resume, (c) a full-width ViT-B/16 serve,
+    under a temporary directory, removed after.  -> (resume counts, K3
+    replays, row)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from byol_tpu_torch.checkpoint import zstd
+    root = tempfile.mkdtemp(prefix="chip_smoke_orbax_")
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        zstd.load()
+        build = {"wall_s": time.perf_counter() - t0,
+                 "compile_s": zstd.build_seconds}
+        print(f"orbax: zstd decoder built by g++ in "
+              f"{zstd.build_seconds:.2f}s", flush=True)
+        fixture = _orbax_fixture(card, root)
+        torch.cuda.empty_cache()
+        counts, rn50 = _orbax_resnet50(card, root)
+        torch.cuda.empty_cache()
+        k3, vit = _orbax_vit(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"build": build, "fixture": fixture, "resnet50": rn50,
+           "vit_b16": vit, "seconds": time.perf_counter() - t_phase}
+    print(json.dumps({"orbax": row}), flush=True)
+    return counts, k3, row
+
+
 # the input phase: the slice's command under loader placement, 2 epochs of
 # 4 steps (256 fake images at batch 64), each data backend making the views
 INPUT_ARGV = ["--task", "fake", "--arch", "resnet50",
@@ -1839,7 +2275,8 @@ HALT_ARGV = ["--task", "fake", "--arch", "resnet50", "--image-size-override",
              "224", "--batch-size", "64", "--epochs", "1", "--fused-update",
              "on", "--data-backend", "device"] + OBSERVE_ARGV
 HALT_AT = 2                        # the optimizer step fed the NaN batch
-OBSERVE_64 = 5                     # timed steps per telemetry arm at 64
+OBSERVE_64 = 3                     # timed steps per telemetry arm at 64
+OBSERVE_64_PROFILED = 1            # profiled steps per telemetry arm at 64
 
 
 def _observe_main(card, micro, root):
@@ -2083,8 +2520,9 @@ def _telemetry_cost_64(card):
         walls[name].append((time.perf_counter() - t0) * 1e3 / OBSERVE_64)
     rows = {}
     for name, (one, sink) in arms.items():
-        prof = _device_profile(one, 3, card, f"resnet50 train step, batch "
-                               f"64, telemetry {name}, per step", top=0)
+        prof = _device_profile(one, OBSERVE_64_PROFILED, card,
+                               f"resnet50 train step, batch 64, telemetry "
+                               f"{name}, per step", top=0)
         sink.drain()
         rows[name] = {"wall_ms": walls[name], "busy_ms": prof["busy_ms"],
                       "profiled_wall_ms": prof["wall_ms"],
@@ -2180,17 +2618,29 @@ def run_observe(card, micro, accum_row):
 
     import torch
     root = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    parts, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        parts[name] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
     try:
         counts, row, state, host, cfg = _observe_main(card, micro, root)
+        lap("main")
         _telemetry_cost_4096(card, state, host, cfg, accum_row, row)
+        lap("telemetry 4096")
         del state, host
         gc.collect()
         torch.cuda.empty_cache()
         row["batch_64"] = _telemetry_cost_64(card)
+        lap("telemetry 64")
         torch.cuda.empty_cache()
         _nan_halt(card, root)
+        lap("nan halt")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    print(f"observe: seconds by part {parts}", flush=True)
+    row["seconds"] = parts
     return counts, row
 
 
@@ -3235,7 +3685,7 @@ def run_ddp(card):
 # path (the ddp phase's config with --fused-update off)
 OPTIM_ARGV = DDP_ARGV[:DDP_ARGV.index("--fused-update")] + [
     "--fused-update", "off", "--warmup", "0"]
-OPTIM_STEPS = 3
+OPTIM_STEPS = 2
 OPTIM_CLIP = 0.01
 # the adaptive bases normalise each element: the recipe's lr 0.2 would
 # move every weight by ~0.2 a step, so they run at 1e-3
@@ -3275,7 +3725,7 @@ def _optim_counters():
 
 
 def _optim_chain_runs(card, batches):
-    """Each chain from one seeded ResNet-50 state, 3 steps on the same
+    """Each chain from one seeded ResNet-50 state, 2 steps on the same
     batches, every launch counter set to 0 before the first chain and
     read after the last.  -> (rows, counts)."""
     import torch
@@ -3312,7 +3762,6 @@ def _optim_chain_runs(card, batches):
             state, batches[1])["loss_mean"])), 1, card,
             f"optim {name} clip {clip}, resnet50 batch 64 step", top=0,
             host=False)
-        losses.append(float(step(state, batches[2])["loss_mean"]))
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         launches = tuple(a - b for a, b in zip(_optim_counters(), before))
@@ -3420,7 +3869,7 @@ def _optim_update_checks(card):
 
 def _optim_zero1(card, root, batches):
     """lars_adam and lbfgs at world 1 over NCCL (a FileStore rendezvous),
-    --zero1 on against off, 3 steps each on the same batches under
+    --zero1 on against off, 2 steps each on the same batches under
     deterministic cuDNN: the states bit for bit.  -> row."""
     import torch.distributed as dist
     from byol_tpu_torch.parallel import mesh
@@ -3460,7 +3909,7 @@ def _optim_zero1(card, root, batches):
 
 
 def run_optim(card):
-    """The optimizer registry on the card: every chain's 3 steps from one
+    """The optimizer registry on the card: every chain's 2 steps from one
     seeded state (the main path of this phase, counted), the chains'
     kernels against their plain versions, ZeRO-1 on against off at world
     1 over NCCL, and torchrun with lamb under ZeRO-1 whose checkpoint
@@ -4384,6 +4833,7 @@ def main() -> int:
     wire_launches, wire_row = phase("wire", run_wire, card)
     train_counts = phase("training", run_training, card)
     ckpt_counts, resumed_counts = phase("checkpoint", run_checkpoint, card)
+    orbax_counts, orbax_k3, orbax_row = phase("orbax", run_orbax, card)
     input_counts, input_rows = phase("input", run_input, card)
     accum_counts, accum_row = phase("accum", run_accum, card)
     observe_counts, observe_row = phase(
@@ -4393,7 +4843,7 @@ def main() -> int:
     optim_counts, optim_row = phase("optim", run_optim, card)
     vit_counts, vit_row = phase("vit", run_vit, card)
     tp_counts, tp_row, tp_sums = phase("tp", run_tp, card)
-    # this slice's main path: the model-2 arm's two ranks (counts a rank:
+    # the tp phase: the model-2 arm's two ranks (counts a rank:
     # segment_norms, fused_apply, two_view, segment_sums, segment_epilogue,
     # flash)
     tp = [sum(c[i] for c in tp_counts) for i in range(6)]
@@ -4406,12 +4856,14 @@ def main() -> int:
         "route": "cuda",
         "source": "byol_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "byol_tpu/ops/flash_attention.py:47",
-        # this slice's main path: served over the wire, from graph
-        # replays (each bucket's capture launches x its replays)
-        "launches": wire_launches,
+        # this slice's main path: ViT-B/16 served from a JAX checkpoint,
+        # from graph replays (each bucket's capture launches x its
+        # replays)
+        "launches": orbax_k3,
         "launches_by_path": {
             "wire (graph replays)": wire_launches,
             "serving (graph replays)": serving_launches,
+            "orbax (graph replays)": orbax_k3,
             "linear_eval": le_counts[0], "observe": observe_counts[0],
             "accum": accum_counts[0], "training": train_counts[0],
             "vit": sum(c[0] for c in vit_counts.values()), "tp": tp[5]},
@@ -4426,8 +4878,8 @@ def main() -> int:
         "ok": all(r["ok"] for r in flash_rows),
     }]
 
-    # this slice's main path: the vit phase's three runs of ViT-B/16, each
-    # with the counters set to 0 before it
+    # the vit phase's three runs of ViT-B/16, each with the counters set
+    # to 0 before it
     vit = [sum(c[i] for c in vit_counts.values()) for i in range(4)]
     vit_paths = {f"vit {name}": c for name, c in vit_counts.items()}
     # the ddp phase's two runs over NCCL (zero1 off, then on)
@@ -4448,7 +4900,8 @@ def main() -> int:
                  "observe": observe_counts[i], "accum": accum_counts[i],
                  "training": train_counts[i],
                  "checkpoint, uninterrupted": ckpt_counts[i],
-                 "checkpoint, relaunch after SIGTERM": resumed_counts[i]})
+                 "checkpoint, relaunch after SIGTERM": resumed_counts[i],
+                 "orbax": orbax_counts[i]})
         paths.update({name: c[i] for name, c in input_counts.items()})
         return paths
     for name, line, i, j in (("segment_norms", 198, 1, 0),
@@ -4458,7 +4911,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "byol_tpu_torch/ops/csrc/fused_update.cu",
             "replaces": f"byol_tpu/ops/fused_update.py:{line}",
-            "launches": vit[i], "launches_by_path": by_path(i, j),
+            "launches": orbax_counts[i], "launches_by_path": by_path(i, j),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -4470,7 +4923,7 @@ def main() -> int:
         "name": "two_view", "route": "cuda",
         "source": "byol_tpu_torch/ops/csrc/fused_augment.cu",
         "replaces": "byol_tpu/ops/fused_augment.py:179",
-        "launches": vit[3],
+        "launches": orbax_counts[3],
         "launches_by_path": dict(by_path(3, 2), optim=optim_counts[0]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
@@ -4479,8 +4932,9 @@ def main() -> int:
         "shape": [64, 224, 224, 3],
         "ok": all(r["ok"] for r in k2_rows)})
     # K1a split: its own entries, which the ZeRO-1 fused update and every
-    # LARS and LAMB chain call; this slice's main path is the tp phase's
-    # model-2 arm (one of each a step on each of its two ranks), and
+    # LARS and LAMB chain call; the orbax path does not launch them, so
+    # their launches are the tp phase's model-2 arm's (one of each a step
+    # on each of its two ranks), where they last ran, and
     # segment_sums' numbers are at that path's layout, the ZeRO-1 range's
     # beside them (the epilogue's 173 segments are the same on both)
     for name, j, i in (("segment_sums", 3, 1), ("segment_epilogue", 4, 2)):

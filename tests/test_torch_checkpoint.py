@@ -355,9 +355,10 @@ def test_polyak_round_trip_is_bitwise_and_its_absence_is_named(tmp_path):
 
 
 def test_orbax_checkpoint_is_refused_and_nothing_deleted(tmp_path, capsys):
-    """The JAX package's orbax ckpt-0 under the port's run directory: the
-    store, the ModelSaver and the training CLI refuse it, naming it, and
-    delete nothing."""
+    """The JAX package's orbax ckpt-0 under the port's run directory, of a
+    tree that is not a TrainState: the store and the ModelSaver list it as
+    an orbax epoch, the training CLI refuses it, naming the leaf it cannot
+    place, and nothing is deleted."""
     argv = ["--no-cuda", "--task", "fake", "--arch", "resnet18",
             "--image-size-override", "16", "--batch-size", "8", "--epochs",
             "2", "--no-half", "--head-latent-size", "32",
@@ -373,12 +374,15 @@ def test_orbax_checkpoint_is_refused_and_nothing_deleted(tmp_path, capsys):
                       for f in fs)
     before = listing()
     assert any("ckpt-0" in p for p in before)
-    for make in (torch_ckpt.CheckpointStore, torch_ckpt.ModelSaver):
-        with pytest.raises(ValueError, match="ckpt-0 is not a byol_tpu_torch"):
-            make(directory)
+    store = torch_ckpt.CheckpointStore(directory)
+    assert store.epochs() == (0,) and store.kind(0) == "orbax"
+    store.close()
+    saver = torch_ckpt.ModelSaver(directory)
+    assert saver.has_checkpoint() and saver.best_metric == 1.0
+    saver.close()
     from byol_tpu_torch.cli import main
     assert main(argv) == 2
-    assert "ckpt-0 is not a byol_tpu_torch checkpoint" in \
+    assert "[('w',)] cannot be placed in a TrainState" in \
         capsys.readouterr().err
     assert listing() == before
 

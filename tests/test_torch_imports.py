@@ -1,6 +1,6 @@
 """The port stands alone: no module of byol_tpu_torch/, and not
 chip_smoke.py or train_torch.py, imports JAX, flax, optax, orbax,
-tensorstore, TensorFlow or the JAX package."""
+tensorstore, zstandard, TensorFlow or the JAX package."""
 import ast
 from pathlib import Path
 
@@ -10,7 +10,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "byol_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "train_torch.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
-             "tensorflow", "byol_tpu"}
+             "zstandard", "tensorflow", "byol_tpu"}
 
 
 def _imported_roots(tree):
@@ -40,6 +40,12 @@ def test_the_scan_sees_the_parallel_modules():
 
 def test_the_scan_sees_the_remat_module():
     assert ROOT / "byol_tpu_torch" / "core" / "remat.py" in FILES
+
+
+def test_the_scan_sees_the_checkpoint_reader():
+    checkpoint = ROOT / "byol_tpu_torch" / "checkpoint"
+    for name in ("zstd", "ocdbt", "orbax", "orbax_fixture"):
+        assert checkpoint / f"{name}.py" in FILES, name
 
 
 def test_the_scan_sees_the_utils_and_the_launcher():
