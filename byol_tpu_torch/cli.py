@@ -2,8 +2,13 @@
 byol_tpu/cli.py).  Every flag of the JAX package's parser is here, with
 its spelling, default and choices, and maps to the same ``Config`` field.
 What the port has no code path for is refused with a message naming
-ROADMAP.md: ``--download`` when nonzero (the port reads local files
-only), ``--profile-port`` above 0 (torch.profiler has no capture server).
+ROADMAP.md: ``--dcn-data-parallel`` above 1 (before anything is built);
+``--download`` when nonzero is refused too (the port reads local files
+only).  ``--profile-port P`` lets another shell or machine capture a
+trace of the live run (observability/profiling.py): each rank listens on
+all interfaces at P plus its local rank, and ``python -m byol_tpu_torch
+capture HOST:PORT DURATION_MS --log-dir DIR`` fetches the next whole
+steps' trace.
 ``--remat`` and ``--remat-policy`` checkpoint each residual or encoder
 block under JAX's named policies (core/remat.py); ``--sequence-parallel
 N`` lays the world out as (data, sequence, model) and shards ViT
@@ -300,8 +305,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "--no-zero-init-residual matches the reference's "
                         "torchvision init")
     p.add_argument("--profile-port", type=int, default=0,
-                   help="refused above 0: torch.profiler has no on-demand "
-                        "capture server (ROADMAP.md, section 1)")
+                   help="serve on-demand trace captures of the live run "
+                        "on this port plus the local rank (0=off); fetch "
+                        "one with python -m byol_tpu_torch capture "
+                        "HOST:PORT DURATION_MS --log-dir DIR")
     # the reference's visdom flags parse for drop-in compatibility; the
     # backend is dropped, and setting them warns and falls back to
     # --grapher
@@ -434,18 +441,48 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 def _run(args: argparse.Namespace, device) -> int:
+    from byol_tpu_torch.core.config import refuse_unported
     from byol_tpu_torch.parallel import mesh
     cfg = config_from_args(args)
+    try:
+        refuse_unported(cfg)
+        # the loader shards over the data axis of the laid-out mesh
+        mesh.init_mesh(cfg.device.sequence_parallel,
+                       cfg.device.model_parallel)
+    except (ValueError, NotImplementedError) as e:
+        print(f"byol_tpu_torch: {e}", file=sys.stderr)
+        return 2
+    server = None
+    if args.profile_port:
+        from byol_tpu_torch.observability import profiling
+        # one process per card (JAX: one per host), so each rank listens
+        # on its own port
+        port = args.profile_port + mesh.local_rank()
+        try:
+            server = profiling.start_server(port,
+                                            cuda=device.type == "cuda")
+        except OSError as e:
+            print(f"byol_tpu_torch: --profile-port: cannot listen on port "
+                  f"{port}: {e}", file=sys.stderr)
+            return 2
+        print(f"profile: rank {server.rank} listening on {server.host}:"
+              f"{server.port} (all interfaces); capture with python -m "
+              f"byol_tpu_torch capture {server.host}:{server.port} "
+              f"DURATION_MS --log-dir DIR", flush=True)
+    try:
+        return _train(args, cfg, device)
+    finally:
+        if server is not None:
+            server.stop()
+
+
+def _train(args: argparse.Namespace, cfg, device) -> int:
     from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.parallel import mesh
     from byol_tpu_torch.training.trainer import fit
     # SystemExit (143 after a SIGTERM checkpoint, or --fault-at-step) is
     # not caught here: it is the process's exit
     try:
-        if args.profile_port:
-            from byol_tpu_torch.observability import profiling
-            profiling.start_server(args.profile_port)
-        # the loader shards over the data axis of the laid-out mesh
-        mesh.init_mesh(cfg.device.sequence_parallel, cfg.device.model_parallel)
         # one loader serves both training and the optional linear eval:
         # at ImageNet scale building it twice doubles the startup scan
         loader = get_loader(cfg, device=device)

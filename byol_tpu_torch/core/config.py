@@ -188,8 +188,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to byol_tpu_torch yet (ROADMAP.md, {item})")
 
 
-def _refuse_unported(cfg: Config) -> None:
-    """The values whose code paths the port does not have yet."""
+def refuse_unported(cfg: Config) -> None:
+    """The values whose code paths the port does not have yet (the CLI
+    asks before it builds anything; ``resolve`` asks again)."""
     if cfg.device.dcn_data_parallel > 1:
         raise _not_ported(
             "--dcn-data-parallel > 1 (NCCL builds its own rings over NVLink "
@@ -278,7 +279,7 @@ def resolve(cfg: Config, *, num_train_samples: int, num_test_samples: int,
             raise ValueError(FUSED_AUGMENT_MESH)
     if cfg.device.nan_policy == "halt" and cfg.device.telemetry == "off":
         raise ValueError("--nan-policy halt requires --telemetry epoch|step")
-    _refuse_unported(cfg)
+    refuse_unported(cfg)
     from byol_tpu_torch.core.remat import resolve_policy_name
     resolve_policy_name(cfg.model.remat, cfg.model.remat_policy)  # fail fast
     per_replica_batch = cfg.task.batch_size // n_rep

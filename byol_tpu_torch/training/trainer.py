@@ -73,7 +73,11 @@ Observability, as the JAX trainer wires it (observability/):
   whole: the model's FLOPs over the world's cards, as JAX divides by
   ``jax.device_count()``) and the step-time tail;
 - the grapher's ``config`` text at epoch 2 carries the SLURM id, the EC2
-  instance id and the card's environment (utils/), as JAX's does.
+  instance id and the card's environment (utils/), as JAX's does;
+- ``profiling.step_boundary`` before every train step and between eval
+  batches: where a ``--profile-port`` capture starts and stops on this
+  thread (the watchdog petted around either); leaving the fit ends a
+  capture still open and names the exception that ended it, if any.
 """
 from __future__ import annotations
 
@@ -96,6 +100,7 @@ from byol_tpu_torch.data.loader import LoaderBundle, get_loader, pad_batch
 from byol_tpu_torch.data.prefetch import prefetch_to_device
 from byol_tpu_torch.observability import flops as flops_lib
 from byol_tpu_torch.observability import goodput as goodput_lib
+from byol_tpu_torch.observability import profiling
 from byol_tpu_torch.observability import spans as spans_lib
 from byol_tpu_torch.observability.events import RunLog, run_header_env
 from byol_tpu_torch.observability.grapher import Grapher
@@ -285,6 +290,9 @@ def fit(cfg: Config, *, device, loader: Optional[LoaderBundle] = None,
         return _fit(cfg, rcfg, saver, device, loader, verbose, obs)
     finally:
         obs.watchdog.stop()
+        # never raises: a fault in the stop is the capture's 500, and the
+        # fit's own exception (sys.exc_info here) goes on
+        profiling.end_capture(error=sys.exc_info()[1])
         events.close()
         grapher.close()
         saver.close()             # raises if the last write failed
@@ -295,6 +303,7 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
     recorder, events, sink = obs.recorder, obs.events, obs.sink
     watchdog, grapher, timer = obs.watchdog, obs.grapher, obs.timer
     plan = obs.plan
+    boundary, pet = profiling.step_boundary, watchdog.pet
     # the data axis's (d, D): eval batches are dealt over it, and the
     # ranks of a sequence group see the same ones
     rank, world = mesh.process_info()
@@ -352,6 +361,7 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
         for batch in src:
             n = 0 if batch is None else len(batch["label"])  # None: a pad
             for start in range(0, n, eval_rows):
+                boundary(state.step, pet)
                 rows = {k: v[start:start + eval_rows]
                         for k, v in batch.items()}
                 acc.update(eval_step(state, _to_device(
@@ -497,6 +507,9 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
         and the first kernel-library load, so it is startup, not
         productive time; its FLOPs are counted (MFU) as it runs."""
         nonlocal first_step
+        # a capture starts and stops between steps: one boundary before
+        # each; the eval batches' and the end's close the last
+        boundary(state.step, pet)
         if not first_step:
             with recorder.span("train/dispatch"):
                 return train_step(state, batch)
@@ -673,6 +686,9 @@ def _fit(cfg: Config, rcfg, saver: ModelSaver, device,
             # None: the old handler was not installed from Python
             signal.signal(signal.SIGTERM, old_sigterm if old_sigterm
                           is not None else signal.SIG_DFL)
+    # the end boundary: a capture still running counts the last step
+    # (fit's end_capture stops it)
+    boundary(state.step, pet)
     watchdog.stop()
     # the run's goodput totals (what `python -m byol_tpu_torch report`
     # renders) and the flight recorder's trace

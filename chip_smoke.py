@@ -2,8 +2,8 @@
 """Drive byol_tpu_torch's serving (in process and over the wire),
 training, checkpoint (its own and the JAX package's orbax checkpoints),
 input, accumulation, observability, linear-eval, data-parallel,
-optimizer-registry, ViT-training and tensor-parallel paths once on one
-CUDA card, and check them.
+optimizer-registry, on-demand profile capture, ViT-training and
+tensor-parallel paths once on one CUDA card, and check them.
 
     python3 chip_smoke.py            # from the repository root; one card
 
@@ -165,11 +165,12 @@ Phases (any failure raises, and the script exits nonzero):
    the vector K1a's wrapper returned on that step; every goodput window's
    buckets sum to its wall within 1 %; the productive share and buckets,
    FLOPs per sample (FlopCounterMode over the first step) and MFU are
-   printed.  Then the cost of telemetry: at 4096, wall ms of 1 step
-   and device-busy ms of 1 profiled step with telemetry 'step' at
+   printed.  Then the cost of telemetry: at 4096, wall and device-busy
+   ms of 1 profiled step (the card alone) with telemetry 'step' at
    interval 1, beside the accum phase's numbers, and the health vector
    alone; at batch 64 (the training phase's config) off, epoch, step at
-   interval 1 and at 50, 3 steps each in turns and 1 profiled.  Last
+   interval 1 and at 50, 2 steps each in turns and 1 profiled (the
+   card alone, no host trace).  Last
    ``--nan-policy halt`` at batch 64 under loader placement (fp32 views
    made on the card): a NaN in view1 row 0 of step 2's batch must raise
    NanHaltError for step 2 with ``halt``, ``state_dump`` and a goodput
@@ -210,6 +211,22 @@ Phases (any failure raises, and the script exits nonzero):
    header's ``sharding_plan`` reads world 1 and ZeRO-1 on, and its
    checkpoint restores bitwise into a one-card ``--zero1 off`` state,
    which then takes a step;
+11b. profile — on-demand capture of a live run, this slice's main path:
+   ``torchrun --standalone --nproc_per_node 1`` of ``python -m
+   byol_tpu_torch`` (through COUNTS_SHIM, which sets the kernels' counters
+   to 0 before the run and prints them at its exit) with the ddp phase's
+   flags over 3 epochs (24 steps), ``--spans on --profile-port P``; once
+   epoch 0 has printed, ``python -m byol_tpu_torch capture 127.0.0.1:P
+   500`` from another process.  Both exit 0; the run's own launches are
+   K1a = K1b = K2 = 24 and K3 = 0; the trace holds as many steps as the
+   reply's range (after epoch 0), one ``train/dispatch`` region a step,
+   K1a's ``row_norms_kernel`` and ``segment_reduce_kernel``, K1b's
+   ``fused_apply_kernel`` and each of K2's two passes exactly once a
+   step.  Printed: the step walls before, inside and after the capture
+   and across its start and its stop (the flight recorder's dispatch to
+   dispatch), the profiler's start
+   and stop stalls, the export's seconds, the trace's size, the client's
+   wall and the top 10 kernels;
 12. optim — the optimizer registry on the unfused path: the ddp phase's
    config with ``--fused-update off`` (ResNet-50, 224 px, batch 64, bf16,
    K2 in the step), the net built once from the seed; each of the 14
@@ -284,13 +301,16 @@ Phases (any failure raises, and the script exits nonzero):
    into a model-1 state on the card, equal to the tree saved bitwise;
 15. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
    ``{"observe": ...}``, ``{"serving_graph_vs_eager": ..., "wire": ...,
-   "linear_eval": ...}``, ``{"ddp": ...}``, ``{"optim": ...}``,
+   "linear_eval": ...}``, ``{"ddp": ...}``, ``{"profile": ...}``,
+   ``{"optim": ...}``,
    ``{"vit": ...}`` and ``{"tp": ...}`` lines, each phase's seconds, and
    the ``{"kernels": [...]}`` line (launches on this slice's main path,
-   the orbax phase — K1a, K1b and K2 in the resume of JAX's ResNet-50
-   checkpoint, K3 from the graph replays of the ViT-B/16 served from
-   JAX's checkpoint; the split K1a's on the tp phase's two ranks, where
-   it last ran — and per path; the library yardstick of K1a and its
+   the profile phase's torchrun run — K1a, K1b and K2 from that run's own
+   counters; K3, which that path does not run, from its last slice's,
+   the graph replays of the ViT-B/16 served from JAX's checkpoint in
+   the orbax phase; the split K1a's on the tp phase's two ranks, where
+   it last ran — and per path, the profile run's captured steps counted
+   in its trace among them; the library yardstick of K1a and its
    split is ``torch._foreach_norm`` over the leaves of p and g), then,
    last, the ``{"ok": true, "device": ...}`` line.
 """
@@ -1352,11 +1372,17 @@ ORBAX_STEP = 12                    # JAX's checkpoint of epoch 1, mid-epoch
 ORBAX_SAMPLE = os.path.join("tests", "fixtures", "zstd_sample",
                             "float32_level1")
 ORBAX_DECODE_REPS = 40             # decodes of the sample, timed
-# ``python -m byol_tpu_torch`` with the kernels' launch counts printed at
-# exit (the counters live in the process that launches)
-ORBAX_SHIM = (
+# ``python -m byol_tpu_torch`` with the kernels' launch counts set to 0
+# just before the run and printed at its exit (the counters live in the
+# process that launches)
+COUNTS_SHIM = (
     "import json, runpy\n"
+    "from byol_tpu_torch.ops import flash_attention as fa\n"
+    "from byol_tpu_torch.ops import fused_augment as fg\n"
+    "from byol_tpu_torch.ops import fused_update as fu\n"
     "from byol_tpu_torch.serving.engine import kernel_launches\n"
+    "fa.LAUNCHES = fg.LAUNCHES = 0\n"
+    "fu.SEGMENT_NORMS_LAUNCHES = fu.FUSED_APPLY_LAUNCHES = 0\n"
     "try:\n"
     "    runpy.run_module('byol_tpu_torch', run_name='__main__',"
     " alter_sys=True)\n"
@@ -1598,7 +1624,7 @@ def _orbax_resnet50(card, root):
     env = dict(os.environ, PYTHONPATH=here + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-c", ORBAX_SHIM, *argv],
+    proc = subprocess.Popen([sys.executable, "-c", COUNTS_SHIM, *argv],
                             cwd=here, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
@@ -2275,7 +2301,7 @@ HALT_ARGV = ["--task", "fake", "--arch", "resnet50", "--image-size-override",
              "224", "--batch-size", "64", "--epochs", "1", "--fused-update",
              "on", "--data-backend", "device"] + OBSERVE_ARGV
 HALT_AT = 2                        # the optimizer step fed the NaN batch
-OBSERVE_64 = 3                     # timed steps per telemetry arm at 64
+OBSERVE_64 = 2                     # timed steps per telemetry arm at 64
 OBSERVE_64_PROFILED = 1            # profiled steps per telemetry arm at 64
 
 
@@ -2392,10 +2418,10 @@ def _observe_main(card, micro, root):
 
 
 def _telemetry_cost_4096(card, state, host, cfg, accum_row, row):
-    """(b) at 4096: wall ms of 1 optimizer step and device-busy
-    ms of 1 profiled step with telemetry 'step' at interval 1 (the offer
-    in the loop), beside the accum phase's numbers with it off; and the
-    health vector alone."""
+    """(b) at 4096: wall and device-busy ms of 1 profiled optimizer step
+    (the card alone) with telemetry 'step' at interval 1 (the offer in the
+    loop), beside the accum phase's numbers with it off; and the health
+    vector alone."""
     import dataclasses
 
     import torch
@@ -2419,17 +2445,14 @@ def _telemetry_cost_4096(card, state, host, cfg, accum_row, row):
 
     def observed():
         sink.offer(state.step + 1, step(state, big)["health"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    observed()
-    torch.cuda.synchronize()
-    sink.drain()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    # its wall from the profiled step: a host-free trace adds no host
+    # callbacks to the step
     prof = _device_profile(observed, 1, card,
                            f"resnet50 optimizer step of {ACCUM_BATCH} with "
                            "telemetry step, interval 1, per step", top=0,
                            host=False)
     sink.drain()
+    wall_ms = prof["wall_ms"]
     # the health vector alone on this state's buffers (eager, CUDA events)
     trust = torch.ones(sum(state.seg.adapted), device="cuda")
     collapse = (torch.ones((), device="cuda"), torch.zeros((), device="cuda"))
@@ -2443,8 +2466,9 @@ def _telemetry_cost_4096(card, state, host, cfg, accum_row, row):
     # which runs under the FLOP counter)
     steady = flops.mfu(ACCUM_BATCH / accum_row["wall_ms"] * 1e3,
                        row["flops_per_sample"], flops.chip_peak_tflops())
-    row.update(telemetry_wall_ms=wall_ms, telemetry_busy_ms=prof["busy_ms"],
-               off_wall_ms=accum_row["wall_ms"],
+    row.update(telemetry_profiled_wall_ms=wall_ms,
+               telemetry_busy_ms=prof["busy_ms"],
+               off_profiled_wall_ms=accum_row["profiled_wall_ms"],
                off_busy_ms=accum_row["busy_ms"], health_ms=health_ms,
                health_bound_ms=bound_ms, mfu_steady=steady)
     print(f"observe: MFU at the accum phase's steady "
@@ -2453,8 +2477,9 @@ def _telemetry_cost_4096(card, state, host, cfg, accum_row, row):
           f"{flops.chip_peak_tflops()} TFLOP/s dense BF16) [{card}]",
           flush=True)
     print(f"observe: telemetry cost at {ACCUM_BATCH}: wall {wall_ms:.1f} "
-          f"ms/step (1 step) vs {accum_row['wall_ms']:.1f} off (the accum "
-          f"phase), device busy {prof['busy_ms']:.1f} vs "
+          f"ms/step vs {accum_row['profiled_wall_ms']:.1f} off (the accum "
+          f"phase; 1 step each, both under the card-only profiler), "
+          f"device busy {prof['busy_ms']:.1f} vs "
           f"{accum_row['busy_ms']:.1f} ms (1 profiled step each: "
           f"{prof['busy_ms'] - accum_row['busy_ms']:+.1f} ms); the health "
           f"vector alone {health_ms:.4f} ms eager over "
@@ -2520,9 +2545,10 @@ def _telemetry_cost_64(card):
         walls[name].append((time.perf_counter() - t0) * 1e3 / OBSERVE_64)
     rows = {}
     for name, (one, sink) in arms.items():
+        # the card alone: a host trace's processing cost seconds an arm
         prof = _device_profile(one, OBSERVE_64_PROFILED, card,
                                f"resnet50 train step, batch 64, telemetry "
-                               f"{name}, per step", top=0)
+                               f"{name}, per step", top=0, host=False)
         sink.drain()
         rows[name] = {"wall_ms": walls[name], "busy_ms": prof["busy_ms"],
                       "profiled_wall_ms": prof["wall_ms"],
@@ -3679,6 +3705,214 @@ def run_ddp(card):
                                                   "trust_rel_err",
                                                   "world1_bitwise")}}
     return counts, rows, row
+
+
+# the profile phase: the ddp phase's torchrun launch of the slice's
+# command with --profile-port, captured live by the port's client
+PROFILE_ARGV = (DDP_ARGV[:DDP_ARGV.index("--epochs")] + ["--epochs", "3"]
+                + DDP_ARGV[DDP_ARGV.index("--epochs") + 2:]
+                + ["--spans", "on"])
+PROFILE_STEPS = 24                 # 3 epochs of 512 fake images at 64
+PROFILE_EPOCH = 8
+PROFILE_MS = 500
+# the kernels of the path, one wrapper call of each a step: (the kernel's
+# name in the trace, its counter, kernel launches a call: K2 launches its
+# two passes, two_view_kernel<..., false> and <..., true>)
+PROFILE_KERNELS = (("row_norms_kernel", "segment_norms", 1),
+                   ("segment_reduce_kernel", "segment_norms", 1),
+                   ("fused_apply_kernel", "fused_apply", 1),
+                   ("two_view_kernel", "two_view", 2))
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _step_walls(trace_json, first, last):
+    """Wall ms of each step from the run's flight recorder: the time from
+    one ``train/dispatch`` span's start to the next one's within an epoch
+    (step 0 is ``startup/compile``, so the k-th dispatch is step k + 1),
+    split into the steps before, inside and after the capture, the step
+    before the first captured one (its interval holds the start) and the
+    last captured step (its interval holds the stop)."""
+    with open(trace_json) as f:
+        starts = sorted(e["ts"] for e in json.load(f)["traceEvents"]
+                        if e.get("name") == "train/dispatch")
+    if len(starts) != PROFILE_STEPS - 1:
+        raise AssertionError(f"profile: the flight recorder holds "
+                             f"{len(starts)} train/dispatch spans, want "
+                             f"{PROFILE_STEPS - 1}")
+    walls = {"before": [], "start": [], "during": [], "stop": [],
+             "after": []}
+    for k in range(len(starts) - 1):
+        step = k + 1
+        if (step + 1) % PROFILE_EPOCH == 0:
+            continue                     # the epoch's eval and checkpoint
+        # the boundary before step s falls in step s - 1's interval
+        where = ("before" if step < first - 1 else "start"
+                 if step == first - 1 else "during" if step < last
+                 else "stop" if step == last else "after")
+        walls[where].append(round((starts[k + 1] - starts[k]) / 1e3, 3))
+    return walls
+
+
+def run_profile(card):
+    """On-demand capture of a live run: ``torchrun --standalone
+    --nproc_per_node 1 -m byol_tpu_torch`` with the ddp phase's flags over
+    3 epochs, ``--spans on --profile-port P``; once it prints its first
+    epoch, ``python -m byol_tpu_torch capture 127.0.0.1:P 500`` from
+    another process.  The run's own wrapper counters (set to 0 just
+    before it, printed at its exit by COUNTS_SHIM) must read one launch of
+    K1a, K1b and K2 a step and none of K3; the trace must hold K1a's two
+    kernels, K1b and K2 exactly once per captured step, one
+    ``train/dispatch`` region a step, as many steps as the reply's range.
+    -> (the run's launches by counter, those counted in the trace, row)."""
+    import re
+    import shutil
+    import statistics
+    import tempfile
+    import threading
+
+    from byol_tpu_torch.observability import capture
+    root = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    port = _free_port()
+    shim = os.path.join(root, "counts_shim.py")
+    with open(shim, "w") as f:
+        f.write(COUNTS_SHIM)
+    # torchrun runs the shim as its script: ``python -m byol_tpu_torch``
+    # with the counters of the process that launches
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", shim, *PROFILE_ARGV,
+           "--profile-port", str(port),
+           "--model-dir", os.path.join(root, "models"),
+           "--log-dir", os.path.join(root, "logs"), "--grapher", "jsonl",
+           "--workers-per-replica", "0"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    lines, seen = [], {"listening": threading.Event(),
+                       "epoch 0:": threading.Event()}
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            for key, event in seen.items():
+                if key in line:
+                    event.set()
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        for key in ("listening", "epoch 0:"):
+            if not seen[key].wait(300):
+                raise AssertionError(f"profile: the run printed no "
+                                     f"{key!r} line: {lines[-12:]}")
+        t0 = time.perf_counter()
+        client = subprocess.run(
+            [sys.executable, "-m", "byol_tpu_torch", "capture",
+             f"127.0.0.1:{port}", str(PROFILE_MS), "--log-dir",
+             os.path.join(root, "capture")], cwd=here, env=env,
+            capture_output=True, text=True, timeout=300)
+        client_s = time.perf_counter() - t0
+        rc = proc.wait(timeout=300)
+        reader.join(30)
+        run_s = time.perf_counter() - t_start
+        for line in lines:
+            if line.startswith(("profile:", "epoch ", "done:", "launches")):
+                print(f"profile: torchrun | {line[:200]}", flush=True)
+        own = tuple(json.loads(next(
+            (ln for ln in lines if ln.startswith("launches ")),
+            "launches null")[len("launches "):]) or ())
+        for line in (client.stdout + client.stderr).strip().splitlines():
+            print(f"profile: client | {line[:200]}", flush=True)
+        if client.returncode != 0 or rc != 0:
+            raise AssertionError(f"profile: client exited "
+                                 f"{client.returncode}, the run {rc}")
+        head = client.stdout.splitlines()[0]
+        m = re.search(r"steps (\d+)\.\.(\d+) \((\d+) steps.*start stalled "
+                      r"the run ([0-9.]+) s, its stop ([0-9.]+) s; ([0-9.]+) "
+                      r"MB \(([0-9.]+) MB of JSON, exported in ([0-9.]+) "
+                      r"s\).* -> (\S+)$", head)
+        if m is None:
+            raise AssertionError(f"profile: the client printed {head!r}")
+        first, last, steps = (int(m.group(i)) for i in (1, 2, 3))
+        start_s, stall_s, gz_mb, json_mb, export_s = (
+            float(m.group(i)) for i in (4, 5, 6, 7, 8))
+        path = m.group(9)
+        if not os.path.isabs(path):
+            path = os.path.join(here, path)
+        events = capture.load_trace(path)
+        kernels = capture.top_kernels(path, None)
+        # each kernel's launches, and each of its instantiations' (K2's
+        # two passes)
+        counts, variants = {}, {}
+        for name, _, _ in PROFILE_KERNELS:
+            rows = [r for r in kernels if name in r["name"]]
+            counts[name] = sum(r["calls"] for r in rows)
+            variants[name] = sorted(r["calls"] for r in rows)
+        regions = sum(1 for e in events if e.get("name") == "train/dispatch"
+                      and e.get("cat") == "user_annotation")
+        (trace_json,) = [os.path.join(d, "trace.json") for d, _, files in
+                         os.walk(os.path.join(root, "logs"))
+                         if "trace.json" in files]
+        walls = _step_walls(trace_json, first, last)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    med = {k: statistics.median(v) if v else None for k, v in walls.items()}
+    print(f"profile: captured steps {first}..{last} ({steps} steps) of "
+          f"{PROFILE_STEPS}; train/dispatch regions {regions}; kernels a "
+          f"step {counts}; trace {gz_mb:.2f} MB gzipped, {json_mb:.2f} MB "
+          f"of JSON ({json_mb / max(steps, 1):.2f} MB a step), exported "
+          f"and gzipped on the listener in {export_s:.3f} s; the "
+          f"profiler's start stalled the run {start_s:.3f} s, its stop "
+          f"{stall_s:.3f} s; the client's wall "
+          f"{client_s:.2f} s (its wait for the next step boundary "
+          f"included); the run {run_s:.1f} s [{card}]", flush=True)
+    print(f"profile: step wall ms (flight recorder, dispatch to dispatch) "
+          f"before the capture {walls['before']}, inside it "
+          f"{walls['during']}, the last captured step (the stop) "
+          f"{walls['stop']}, after {walls['after']}; medians {med} "
+          f"[{card}]", flush=True)
+    for r in kernels[:10]:
+        print(f"profile: top kernel {r['ms']:9.3f} ms {r['calls']:5d} calls "
+              f"{r['share']:6.1%} [{_kind(r['name'])}] {r['name'][:90]}",
+              flush=True)
+    print(f"profile: the run's own launches (flash, segment_norms, "
+          f"fused_apply, two_view) = {own}, counters set to 0 just before "
+          f"it and read at its exit; want (0, {PROFILE_STEPS}, "
+          f"{PROFILE_STEPS}, {PROFILE_STEPS})", flush=True)
+    want = {name: [steps] * per for name, _, per in PROFILE_KERNELS}
+    if not (steps >= 1 and steps == last - first + 1 and regions == steps
+            and variants == want and first >= PROFILE_EPOCH):
+        raise AssertionError(f"profile: steps {first}..{last} ({steps}), "
+                             f"regions {regions}, kernel launches by "
+                             f"instantiation {variants}, want {want}")
+    if own != (0,) + (PROFILE_STEPS,) * 3:
+        raise AssertionError(f"profile: the run's launches {own}")
+    launches = dict(zip(("flash_attention", "segment_norms", "fused_apply",
+                         "two_view"), own))
+    # the wrappers' calls in the captured steps, from the trace
+    traced = {counter: counts[name] // per
+              for name, counter, per in PROFILE_KERNELS}
+    traced["flash_attention"] = 0
+    return launches, traced, {
+        "launches": list(own), "traced_launches": traced,
+        "steps": [first, last], "regions": regions, "kernels": counts,
+        "start_stall_s": start_s, "stop_stall_s": stall_s,
+        "export_s": export_s,
+        "trace_gz_mb": gz_mb,
+        "trace_json_mb": json_mb, "client_s": client_s, "run_s": run_s,
+        "step_wall_ms": walls, "step_wall_median_ms": med,
+        "top_kernels": kernels[:10]}
 
 
 # the optim phase: every chain of the optimizer registry on the unfused
@@ -4840,6 +5074,8 @@ def main() -> int:
         "observe", run_observe, card, accum_row["microbatch"], accum_row)
     le_counts, le_row = phase("linear_eval", run_linear_eval, card)
     ddp_counts, ddp_rows, ddp_row = phase("ddp", run_ddp, card)
+    profile_counts, profile_traced, profile_row = phase(
+        "profile", run_profile, card)
     optim_counts, optim_row = phase("optim", run_optim, card)
     vit_counts, vit_row = phase("vit", run_vit, card)
     tp_counts, tp_row, tp_sums = phase("tp", run_tp, card)
@@ -4856,9 +5092,9 @@ def main() -> int:
         "route": "cuda",
         "source": "byol_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "byol_tpu/ops/flash_attention.py:47",
-        # this slice's main path: ViT-B/16 served from a JAX checkpoint,
-        # from graph replays (each bucket's capture launches x its
-        # replays)
+        # not on this slice's path: its last slice's, ViT-B/16 served
+        # from a JAX checkpoint, from graph replays (each bucket's
+        # capture launches x its replays)
         "launches": orbax_k3,
         "launches_by_path": {
             "wire (graph replays)": wire_launches,
@@ -4866,7 +5102,9 @@ def main() -> int:
             "orbax (graph replays)": orbax_k3,
             "linear_eval": le_counts[0], "observe": observe_counts[0],
             "accum": accum_counts[0], "training": train_counts[0],
-            "vit": sum(c[0] for c in vit_counts.values()), "tp": tp[5]},
+            "vit": sum(c[0] for c in vit_counts.values()), "tp": tp[5],
+            "profile": profile_counts["flash_attention"],
+            "profile (traced)": 0},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                            if r["dtype"] == "bfloat16"),
         "ms": main_row["ms"],
@@ -4903,6 +5141,12 @@ def main() -> int:
                  "checkpoint, relaunch after SIGTERM": resumed_counts[i],
                  "orbax": orbax_counts[i]})
         paths.update({name: c[i] for name, c in input_counts.items()})
+        name = ("flash_attention", "segment_norms", "fused_apply",
+                "two_view")[i]
+        # the profile run's own counters, and its captured steps' calls
+        # counted in the trace
+        paths["profile"] = profile_counts[name]
+        paths["profile (traced)"] = profile_traced[name]
         return paths
     for name, line, i, j in (("segment_norms", 198, 1, 0),
                              ("fused_apply", 215, 2, 1)):
@@ -4911,7 +5155,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "byol_tpu_torch/ops/csrc/fused_update.cu",
             "replaces": f"byol_tpu/ops/fused_update.py:{line}",
-            "launches": orbax_counts[i], "launches_by_path": by_path(i, j),
+            "launches": profile_counts[name],
+            "launches_by_path": by_path(i, j),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -4923,7 +5168,7 @@ def main() -> int:
         "name": "two_view", "route": "cuda",
         "source": "byol_tpu_torch/ops/csrc/fused_augment.cu",
         "replaces": "byol_tpu/ops/fused_augment.py:179",
-        "launches": orbax_counts[3],
+        "launches": profile_counts["two_view"],
         "launches_by_path": dict(by_path(3, 2), optim=optim_counts[0]),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
@@ -4957,6 +5202,7 @@ def main() -> int:
     print(json.dumps({"serving_graph_vs_eager": versus, "wire": wire_row,
                       "linear_eval": le_row}), flush=True)
     print(json.dumps({"ddp": ddp_row}), flush=True)
+    print(json.dumps({"profile": profile_row}), flush=True)
     print(json.dumps({"optim": optim_row}), flush=True)
     print(json.dumps({"vit": vit_row}), flush=True)
     print(json.dumps({"tp": tp_row}), flush=True)

@@ -24,8 +24,8 @@ VALUES = {"--arch": "resnet18", "--task": "fake",
           "--log-dir": "/logs/x", "--model-dir": "/models/x",
           "--uid": "exp", "--zero1": "on"}
 # the port parses these and refuses them when they are set, naming
-# ROADMAP.md (no Config field carries them)
-REFUSED_AT_RUN = {"--profile-port"}
+# ROADMAP.md, before anything is built
+REFUSED_AT_RUN = {"--dcn-data-parallel"}
 ONE_REPLICA = ["--num-replicas", "1"]
 
 
@@ -112,11 +112,11 @@ def test_fsdp_is_zero1_on_and_conflicts_with_an_explicit_off():
 
 def test_visdom_flags_warn_and_fall_back(capsys):
     """``--visdom-url`` warns, names the grapher it falls back to, and
-    the run goes on (here: to the refusal of --profile-port, which stops
-    it before anything is built)."""
+    the run goes on (here: to the refusal of --dcn-data-parallel, which
+    stops it before anything is built)."""
     rc = torch_cli.main(["--no-cuda", "--visdom-url", "http://v",
                          "--visdom-port", "8097", "--grapher", "jsonl",
-                         "--profile-port", "9"])
+                         "--dcn-data-parallel", "2"])
     err = capsys.readouterr().err
     assert rc == 2
     assert "visdom" in err and "--grapher=jsonl" in err

@@ -50,7 +50,7 @@ def test_no_cuda_skips_the_probe(entry, monkeypatch, capsys):
     from byol_tpu_torch.serving.cli import main as serve_main
     monkeypatch.setattr(preflight, "preflight_backend", _probe_must_not_run)
     if entry == "train":
-        rc = main(["--no-cuda", "--profile-port", "9"])
+        rc = main(["--no-cuda", "--dcn-data-parallel", "2"])
         assert "ROADMAP.md" in capsys.readouterr().err
     else:
         rc = serve_main(["--no-cuda", "--arch", "resnet18",

@@ -14,9 +14,12 @@ package's where it has the same function.
   ticks on a card, marked ``cuda``).
 - flops: the H100 peak table, no TPU peak, ``mfu`` as JAX computes it.
 - Watchdog, Grapher (jsonl, tensorboard, 'both' without the tensorboard
-  package), profiling (annotate, trace, start_server's refusal).
+  package), profiling (annotate, trace in the capture layout, one
+  start_server a process, which answers a capture).
 """
+import gzip
 import json
+import threading
 import time
 
 import numpy as np
@@ -369,15 +372,48 @@ def test_make_grid_is_jax_grid():
 
 
 def test_profiling_trace_and_annotate(tmp_path):
+    """The trace lands where the capture client writes its own:
+    ``plugins/profile/<time>/<host>.rank<r>.pt.trace.json.gz``."""
     with profiling.trace(str(tmp_path)):
         with profiling.annotate("byol/region"):
             torch.ones(4) @ torch.ones(4)
-    (trace,) = tmp_path.iterdir()
-    with open(trace) as f:
+    (trace,) = (tmp_path / "plugins" / "profile").glob(
+        "*/*.rank0.pt.trace.json.gz")
+    with gzip.open(trace, "rt") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "byol/region" in names
 
 
 def test_profiling_start_server_refuses():
-    with pytest.raises(NotImplementedError, match="trace"):
-        profiling.start_server(9999)
+    """One server a process (a second ``start_server`` is refused, as
+    JAX's is), and the one there answers a capture served at step
+    boundaries on this thread."""
+    import urllib.request
+    srv = profiling.start_server(0, cuda=False)
+    try:
+        with pytest.raises(ValueError, match="Only one profiler server"):
+            profiling.start_server(0)
+        out = {}
+
+        def get():
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/capture?duration_ms=1",
+                    timeout=60) as reply:
+                out["reply"] = (reply.status, reply.headers["Content-Type"],
+                                reply.read())
+        t = threading.Thread(target=get, daemon=True)
+        t.start()
+        step, deadline = 0, time.monotonic() + 60
+        while t.is_alive() and time.monotonic() < deadline:
+            profiling.step_boundary(step)
+            torch.ones(4) @ torch.ones(4)
+            step += 1
+            time.sleep(0.01)
+        t.join(60)
+    finally:
+        srv.stop()
+    status, kind, body = out["reply"]
+    assert (status, kind) == (200, "application/gzip")
+    names = {e.get("name") for e in json.loads(gzip.decompress(body))[
+        "traceEvents"]}
+    assert "aten::dot" in names
