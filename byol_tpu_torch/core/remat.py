@@ -22,13 +22,17 @@ class has:
   are kept.  Under a per-block checkpoint a block's output is the next
   block's input, which is the checkpoint's one residual, so this saves
   what ``full`` saves; JAX's policy, whose remat'd block keeps the tagged
-  output, leaves the same set;
+  output, leaves the same set (a ResNet block's input also carries the
+  bf16 copy of that output where the fused BatchNorm stored one, a
+  checkpoint residual beside it);
 - ``offload_block_out``: as ``save_block_out``, with those residuals (each
   block's input: the previous block's tagged output, or the embedding
   for the first) packed into pinned host memory by saved-tensor hooks
   around the checkpoint (the hooks see the checkpoint's saved inputs and
   nothing inside it; :func:`offload_stats` counts the bytes) and copied
-  back for the recompute.  On a CPU tensor there is nothing to offload.
+  back for the recompute, with the strides they had (a channels-last
+  input comes back channels-last).  On a CPU tensor there is nothing to
+  offload.
 
 Which ops the SAC policy sees (:func:`probe_ops`; no autocast, the
 layers cast to bf16 themselves): an encoder block's ``Dense`` on a (B, S,
@@ -197,8 +201,10 @@ def offload_stats(reset: bool = False) -> Dict[str, int]:
 def _pack_to_host(t: torch.Tensor):
     if t.device.type == "cpu":
         return t
-    host = torch.empty(t.size(), dtype=t.dtype, layout=t.layout,
-                       pin_memory=True)
+    # the same strides: a channels-last block input comes back channels-last,
+    # so the recompute runs the same ops (and kernels) as the forward
+    host = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                               layout=t.layout, pin_memory=True)
     host.copy_(t, non_blocking=True)
     _offload["tensors"] += 1
     _offload["bytes"] += t.numel() * t.element_size()
@@ -212,11 +218,10 @@ def _unpack_from_host(packed):
     return host.to(device, non_blocking=True)
 
 
-def _checkpointed(block: Callable, policy_name: str, x: torch.Tensor
-                  ) -> torch.Tensor:
+def _checkpointed(block: Callable, policy_name: str, *args: Any) -> Any:
     if not torch.is_grad_enabled():
-        return block(x)
-    run = functools.partial(checkpoint, block, x, use_reentrant=False,
+        return block(*args)
+    run = functools.partial(checkpoint, block, *args, use_reentrant=False,
                             context_fn=_context_fn(policy_name))
     if policy_name == "offload_block_out":
         with torch.autograd.graph.saved_tensors_hooks(_pack_to_host,
@@ -225,11 +230,11 @@ def _checkpointed(block: Callable, policy_name: str, x: torch.Tensor
     return run()
 
 
-def wrap_block(block: Callable[[torch.Tensor], torch.Tensor],
-               policy_name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+def wrap_block(block: Callable[..., Any], policy_name: str
+               ) -> Callable[..., Any]:
     """``block`` (a module) under the named policy: ``none`` returns it
-    untouched; every other name returns a callable that runs it under one
-    checkpoint (when autograd records)."""
+    untouched; every other name returns a callable that runs it, on the
+    same arguments, under one checkpoint (when autograd records)."""
     validate_policy(policy_name)
     if policy_name == "none":
         return block

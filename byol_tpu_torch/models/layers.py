@@ -12,6 +12,9 @@
   BIASED batch variance in the running update (torch's own update uses the
   unbiased one), and a switch that normalises with batch statistics
   without updating the running ones (the target network's forward).
+  Train mode on a CUDA bf16 channels-last input runs it, with the ReLU and
+  the residual add that follow it in a ResNet, as the fused kernels of
+  ``ops/batch_norm.py``.
   Inside a process group whose data axis is > 1 (or with ``sync`` set)
   the train-mode statistics are the global batch's, as under JAX's GSPMD
   step (the data group's: the ranks of a sequence group hold the same
@@ -38,6 +41,7 @@ from torch import nn
 
 from byol_tpu_torch.core.precision import at_least_fp32
 from byol_tpu_torch.core.remat import recomputing
+from byol_tpu_torch.ops import batch_norm as bn_ops
 from byol_tpu_torch.parallel.collectives import psum
 from byol_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
 
@@ -123,6 +127,12 @@ class BatchNorm(nn.Module):
       the class keeps the one-device code path.  JAX's
       ``convert_to_sync_bn`` changes nothing here, as in JAX, where GSPMD
       syncs the statistics either way.
+    - ``relu`` / ``residual``: the ReLU and residual add that follow the
+      norm in a ResNet block.  In train mode on a CUDA bf16 channels-last
+      input whose statistics are not synced, the norm, the add and the
+      ReLU run as the fused kernels of ``ops/batch_norm.py`` (fp32
+      statistics, the same running-statistics rule), stored in bf16 when
+      ``cast_to`` says every consumer casts to bf16, else fp32.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9,
@@ -142,15 +152,57 @@ class BatchNorm(nn.Module):
             self.weight.fill_(0.0 if self.zero_init else 1.0)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, relu: bool = False,
+                residual: Optional[torch.Tensor] = None,
+                cast_to: Optional[torch.dtype] = None,
+                copy_to: Optional[torch.dtype] = None):
+        """The norm, then ``+ residual`` and ReLU where asked (a ResNet
+        block's tail).  ``cast_to``: the dtype every consumer of the output
+        casts it to first (the next conv's compute dtype), which the fused
+        path may store it in.  ``copy_to``: the dtype some consumers cast
+        the (float32) output to; the call then returns ``(y, copy)``, the
+        copy the output in that dtype where the fused path stored one, else
+        None (those consumers cast ``y`` themselves).  A train-mode call on
+        an input that ``ops/batch_norm.py::fusable`` accepts, with the
+        statistics not synced, takes the fused kernels; every other call
+        runs :meth:`unfused`."""
+        if self.training and not self._sync() and bn_ops.fusable(x):
+            bf16 = torch.bfloat16
+            copy_dtype = bf16 if copy_to == bf16 else None
+            out = bn_ops.train_norm(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, residual=residual, relu=relu,
+                out_dtype=bf16 if cast_to == bf16 else torch.float32,
+                copy_dtype=copy_dtype, momentum=self.momentum, eps=self.eps,
+                update=self.update_stats and not recomputing())
+            if copy_to is not None and copy_dtype is None:
+                return out, None
+            return out
+        if bn_ops.on_card(x):
+            bn_ops.UNFUSED_CUDA_CALLS += 1
+        y = self.unfused(x, relu=relu, residual=residual)
+        return y if copy_to is None else (y, None)
+
+    def _sync(self) -> bool:
+        return (self.sync if self.sync is not None
+                else axis_size(DATA_AXIS) > 1)
+
+    def unfused(self, x: torch.Tensor, *, relu: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The module's own path, float32 output: the norm, ``y +
+        residual``, ``F.relu``, each as its own op."""
+        y = self._norm(x)
+        if residual is not None:
+            y = y + residual
+        return F.relu(y) if relu else y
+
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
         x = at_least_fp32(x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps)
-        sync = (self.sync if self.sync is not None
-                else axis_size(DATA_AXIS) > 1)
-        if sync:
+        if self._sync():
             return self._synced(x)
         if not self.update_stats:
             return F.batch_norm(x, None, None, self.weight, self.bias, True,

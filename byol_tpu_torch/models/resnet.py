@@ -12,6 +12,17 @@ flax tree loads with ``load_state_dict(strict=True)``:
   (flax semantics, float32 statistics AND output): as in flax, the block
   outputs, the residual sums and the pooled features are float32, and each
   conv casts its input to the compute dtype;
+- each BatchNorm is handed the ReLU and the residual add that follow it
+  (the stem's ReLU; bn1 and bn2's; the block's add and ReLU on its last
+  BatchNorm, the downsample branch's output as the residual), so that in
+  training on the card they run inside the fused kernels
+  (``ops/batch_norm.py``); bn1 and bn2 feed only a conv, so they may store
+  the bf16 the conv casts to (``cast_to``); everything else stays fp32;
+- a block takes and returns ``(x, x_copy)``: the fp32 block output and,
+  where the fused kernels stored one, its bf16 copy (``copy_to``), which
+  the next block's first conv reads in place of its own cast (None: it
+  casts); the downsample conv casts for itself, so the two convs'
+  gradients meet in fp32, as before;
 - ``zero_init_residual`` zeroes each block's last BN scale;
 - a block has a downsample branch exactly where flax's shape test finds
   one: a stride or a width change;
@@ -22,7 +33,7 @@ flax tree loads with ``load_state_dict(strict=True)``:
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -89,13 +100,16 @@ class BasicBlock(nn.Module):
             self.downsample_conv = _conv(cin, filters, 1, stride, dtype=dtype)
             self.downsample_bn = BatchNorm(filters)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x: torch.Tensor, x_copy: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        y = self.bn1(self.conv1(x if x_copy is None else x_copy), relu=True,
+                     cast_to=self.conv2.dtype)
         residual = x
         if self.has_downsample:
             residual = self.downsample_bn(self.downsample_conv(x))
-        return remat_lib.tag_block_out(F.relu(y + residual))
+        out, out_copy = self.bn2(self.conv2(y), residual=residual, relu=True,
+                                 copy_to=self.conv1.dtype)
+        return remat_lib.tag_block_out(out), out_copy
 
 
 class Bottleneck(nn.Module):
@@ -123,14 +137,17 @@ class Bottleneck(nn.Module):
             self.downsample_conv = _conv(cin, out, 1, stride, dtype=dtype)
             self.downsample_bn = BatchNorm(out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+    def forward(self, x: torch.Tensor, x_copy: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        y = self.bn1(self.conv1(x if x_copy is None else x_copy), relu=True,
+                     cast_to=self.conv2.dtype)
+        y = self.bn2(self.conv2(y), relu=True, cast_to=self.conv3.dtype)
         residual = x
         if self.has_downsample:
             residual = self.downsample_bn(self.downsample_conv(x))
-        return remat_lib.tag_block_out(F.relu(y + residual))
+        out, out_copy = self.bn3(self.conv3(y), residual=residual, relu=True,
+                                 copy_to=self.conv1.dtype)
+        return remat_lib.tag_block_out(out), out_copy
 
 
 class ResNet(nn.Module):
@@ -184,14 +201,16 @@ class ResNet(nn.Module):
         else:
             # NHWC -> channels_last NCHW: a view, no copy
             x = self.stem_conv(x.permute(0, 3, 1, 2))
-        x = F.relu(self.stem_bn(x))
+        # float32 out: the max-pool's output is a residual of a BasicBlock
+        x = self.stem_bn(x, relu=True)
         if not self.small_inputs:
             x = F.max_pool2d(x, 3, 2, padding=1)
+        x_copy = None
         for i, n_blocks in enumerate(self.stage_sizes):
             for j in range(n_blocks):
-                x = remat_lib.wrap_block(
+                x, x_copy = remat_lib.wrap_block(
                     getattr(self, f"stage{i + 1}_block{j + 1}"),
-                    self.remat_policy)(x)
+                    self.remat_policy)(x, x_copy)
         return x.mean(dim=(2, 3)).to(self.dtype)   # global average pool
 
 

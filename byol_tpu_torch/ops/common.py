@@ -27,7 +27,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Any, Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -37,6 +37,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_entries: Dict[str, Any] = {}
 # seconds the nvcc run of this process took (0.0 when the cached library
 # was loaded); the path of its log holds what ptxas said of each kernel
 build_seconds = 0.0
@@ -126,12 +127,25 @@ def library() -> ctypes.CDLL:
 
 def entry(name: str, argtypes):
     """The C entry point ``name`` of the library, its ``argtypes`` declared
-    on first use: undeclared, ctypes would pass a pointer as a 32-bit int."""
-    fn = getattr(library(), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    on first use: undeclared, ctypes would pass a pointer as a 32-bit int.
+    Looked up once (a wrapper called ~300 times a microbatch, as the fused
+    BatchNorm's, would otherwise pay the library's lock every call)."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _entries[name] = fn
     return fn
+
+
+def stream(t) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device
+    (``torch.cuda.current_stream(device).cuda_stream`` costs ~20 us of host
+    time a call)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, what: str) -> None:

@@ -34,7 +34,16 @@ Phases (any failure raises, and the script exits nonzero):
    contraction alone as two fp32 einsums is timed beside it.  Then K2's
    two passes launch by launch at the training shape, with L2 left as
    the previous call left it, flushed, or holding the image, and the
-   clocks nvidia-smi reads meanwhile;
+   clocks nvidia-smi reads meanwhile.  Then the fused BatchNorm kernels
+   (ops/batch_norm.py; they replace no TPU kernel) at every ResNet-50
+   BatchNorm shape and form of one view of 256 images (BN_SHAPES),
+   forward and backward against their plain version on one mask (output,
+   mean, rstd, the bf16 copy bitwise, dx, dweight, dbias, the residual's
+   gradient; BN_TOL), graph ms beside the bytes bound, the plain
+   version's, PyTorch's mixed-precision batch norm (``aten.
+   native_batch_norm`` and its backward: a yardstick the port never
+   calls) and the eager ms of the module's fused call against its own
+   chain, forward and backward;
 4. serving — ViT-B/16 (224 px, bf16, attn_impl='flash', random weights from
    the seed, buckets 8..64) through ``build_service``: warmup captures one
    CUDA graph per bucket (each capture must record 12 flash launches and
@@ -72,7 +81,10 @@ Phases (any failure raises, and the script exits nonzero):
    step from raw uint8 batches, its per-epoch checkpoints under a
    temporary ``--model-dir`` removed after) through the CLI's config and
    the trainer, with every launch counter set to 0 just before and read just after: 3
-   optimizer steps, every loss finite, K2 = K1a = K1b = 1 launch per step.
+   optimizer steps, every loss finite, K2 = K1a = K1b = 1 launch per step,
+   318 fused BatchNorm calls per step (53 a view-forward of the target and
+   the online net, 53 backwards a view), the module's own path's calls
+   printed.
    Then one more step on the trained state: the params must move, the
    target must be tau t + (1 - tau) p', the plain unfused chain applied to
    a copy of the pre-step state with that step's gradients must give the
@@ -299,8 +311,8 @@ Phases (any failure raises, and the script exits nonzero):
    arithmetic, against their key's largest magnitude; the loss at 1e-5);
    last the model-2 arm's checkpoint (whole leaves) restored
    into a model-1 state on the card, equal to the tree saved bitwise;
-15. prints the ``{"input_arms": ...}``, ``{"accum": ...}``,
-   ``{"observe": ...}``, ``{"serving_graph_vs_eager": ..., "wire": ...,
+15. prints the ``{"batch_norm": ...}``, ``{"input_arms": ...}``,
+   ``{"accum": ...}``, ``{"observe": ...}``, ``{"serving_graph_vs_eager": ..., "wire": ...,
    "linear_eval": ...}``, ``{"ddp": ...}``, ``{"profile": ...}``,
    ``{"optim": ...}``,
    ``{"vit": ...}`` and ``{"tp": ...}`` lines, each phase's seconds, and
@@ -314,6 +326,7 @@ Phases (any failure raises, and the script exits nonzero):
    split is ``torch._foreach_norm`` over the leaves of p and g), then,
    last, the ``{"ok": true, "device": ...}`` line.
 """
+import functools
 import json
 import math
 import os
@@ -575,6 +588,181 @@ def _smi(query):
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
         check=True).stdout.strip().splitlines()[0]
+
+
+# the fused BatchNorm's forms on ResNet-50's main path: (C, H = W) of one
+# view of 256 images at 224 px -> [(relu, residual, out dtype, bf16 copy)]
+_STEM = (True, False, "float32", False)
+_INNER = (True, False, "bfloat16", False)             # bn1, bn2
+_LAST = (True, True, "float32", True)                 # bn3, its copy
+_DOWN = (False, False, "float32", False)              # the downsample branch
+BN_SHAPES = {
+    (64, 112): [_STEM], (64, 56): [_INNER], (256, 56): [_LAST, _DOWN],
+    (128, 56): [_INNER], (128, 28): [_INNER], (512, 28): [_LAST, _DOWN],
+    (256, 28): [_INNER], (256, 14): [_INNER], (1024, 14): [_LAST, _DOWN],
+    (512, 14): [_INNER], (512, 7): [_INNER], (2048, 7): [_LAST, _DOWN],
+}
+BN_BATCH = 256
+BN_PER_STEP = 53 * 6        # fused calls a ResNet-50 step of two views
+BN_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}    # of the largest magnitude
+
+
+def check_batch_norm(card):
+    """The fused BatchNorm kernels (ops/batch_norm.py) at every ResNet-50
+    BatchNorm shape and form of one view of 256 images: forward and
+    backward against their plain version (outputs, dx within BN_TOL of the
+    largest magnitude in their dtype, mask, residual gradient, dweight and
+    dbias 1e-4), each timed as graph ms beside its bytes bound (each input
+    byte read once, each output byte written once), the plain version and
+    PyTorch's mixed-precision batch norm (``aten.native_batch_norm`` and
+    its backward on the bf16 tensor: the library yardstick, which the port
+    never calls), and the module's own chain (today's path: fp32 norm,
+    ReLU or add + ReLU, the cast the next conv makes) forward and backward
+    eagerly beside the fused module call; returns the rows."""
+    import torch
+    from byol_tpu_torch.models.layers import BatchNorm
+    from byol_tpu_torch.ops import batch_norm as bn_ops
+    cl = torch.channels_last
+    rows = []
+    for (c, hw), forms in BN_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(c + hw)
+        shape = (BN_BATCH, c, hw, hw)
+        x = (torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.3)
+        x = x.to(torch.bfloat16).contiguous(memory_format=cl)
+        w = torch.rand(c, device="cuda", generator=gen) + 0.5
+        b = torch.randn(c, device="cuda", generator=gen) * 0.3
+        rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        res_t = torch.randn(shape, device="cuda",
+                            generator=gen).contiguous(memory_format=cl)
+        elems = x.numel()
+        for relu, residual, out_name, copy in forms:
+            out_dt = getattr(torch, out_name)
+            res = res_t if residual else None
+            kw = dict(relu=relu, out_dtype=out_dt, momentum=0.9, eps=1e-5,
+                      copy_dtype=torch.bfloat16 if copy else None,
+                      update=False)
+
+            def fwd(plain=False):
+                f = bn_ops.forward_reference if plain else functools.partial(
+                    bn_ops._forward, with_mask=True)
+                return f(x, w, b, res, rm, rv, **kw)
+            y, y_copy, mask, mean, rstd = fwd()
+            y_ref, _, mask_ref, mean_ref, rstd_ref = fwd(plain=True)
+            mask_bool = None
+            if relu:
+                # the kernel's bits as the plain version's (N, C, H, W)
+                # bools: the backward is compared on one mask
+                bits = torch.stack([(mask >> j) & 1 for j in range(8)],
+                                   dim=-1)
+                mask_bool = bits.reshape(BN_BATCH, hw, hw, c).permute(
+                    0, 3, 1, 2).bool()
+            g = torch.randn(shape, device="cuda", generator=gen).to(
+                out_dt).contiguous(memory_format=cl)
+            g_copy = (torch.randn(shape, device="cuda", generator=gen).to(
+                torch.bfloat16).contiguous(memory_format=cl) if copy
+                else None)
+
+            def bwd(plain=False):
+                f = bn_ops.backward_reference if plain else bn_ops._backward
+                m = mask_bool if plain else mask
+                return f(g, g_copy, x, w, mean, rstd, m, residual)
+            grads = bwd()
+            grads_ref = bwd(plain=True)
+            torch.cuda.synchronize()
+            errs = {"out": _bn_err(y, y_ref),
+                    "mean": _bn_err(mean, mean_ref),
+                    "rstd": _bn_err(rstd, rstd_ref),
+                    "dx": _bn_err(grads[0], grads_ref[0]),
+                    "dweight": _bn_err(grads[2], grads_ref[2]),
+                    "dbias": _bn_err(grads[3], grads_ref[3])}
+            if residual:
+                errs["dres"] = _bn_err(grads[1], grads_ref[1])
+            if copy:
+                errs["copy"] = _bn_err(y_copy, y.to(torch.bfloat16))
+            mask_flips = 0.0
+            if relu:
+                mask_flips = (mask_bool != mask_ref).float().mean().item()
+            ok = (errs["out"] <= BN_TOL[out_name]
+                  and errs["dx"] <= BN_TOL["bfloat16"]
+                  and max(errs["mean"], errs["rstd"]) <= 1e-5
+                  and max(errs["dweight"], errs["dbias"]) <= 1e-4
+                  and errs.get("dres", 0.0) <= 1e-5 and mask_flips <= 1e-4
+                  and errs.get("copy", 0.0) == 0.0)
+            size = {"float32": 4, "bfloat16": 2}[out_name]
+            # each input byte read once, each output byte written once
+            fwd_bytes = elems * (2 + size + 4 * residual + relu / 8
+                                 + 2 * copy)
+            bwd_bytes = elems * (size + 2 * copy + 2 + relu / 8 + 2
+                                 + 4 * residual)
+            eps = 1e-5
+            lib_out = torch.ops.aten.native_batch_norm(
+                x, w, b, None, None, True, 0.0, eps)
+            g16 = g.to(torch.bfloat16)
+            bn = BatchNorm(c).cuda()
+            with torch.no_grad():
+                bn.weight.copy_(w)
+                bn.bias.copy_(b)
+            xg = x.detach().requires_grad_()
+            resg = None if res is None else res.detach().requires_grad_()
+            cast = torch.bfloat16 if out_name == "bfloat16" else None
+
+            wrt = [xg, bn.weight, bn.bias] + ([resg] if residual else [])
+            copy_to = torch.bfloat16 if copy else None
+
+            def module_step(fused):
+                """The module's call and its backward; the consumers' casts
+                of today's path (the next conv's) included."""
+                if fused:
+                    y = bn(xg, relu=relu, residual=resg, cast_to=cast,
+                           copy_to=copy_to)
+                else:
+                    y = bn.unfused(xg, relu=relu, residual=resg)
+                    if cast is not None:
+                        y = y.to(cast)
+                    if copy:
+                        y = (y, y.to(torch.bfloat16))
+                outs = list(y) if copy else [y]
+                return torch.autograd.grad(outs, wrt, [g, g_copy][:len(outs)])
+            row = {
+                "shape": list(shape), "relu": relu, "residual": residual,
+                "out": out_name, "copy": copy, "errors": errs,
+                "mask_flips": mask_flips,
+                "ok": ok,
+                "forward_ms": _device_ms(fwd),
+                "forward_bound_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+                "backward_ms": _device_ms(bwd),
+                "backward_bound_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3,
+                "plain_forward_ms": _device_ms(lambda: fwd(plain=True)),
+                "plain_backward_ms": _device_ms(lambda: bwd(plain=True)),
+                "library_forward_ms": _device_ms(
+                    lambda: torch.ops.aten.native_batch_norm(
+                        x, w, b, None, None, True, 0.0, eps)),
+                "library_backward_ms": _device_ms(
+                    lambda: torch.ops.aten.native_batch_norm_backward(
+                        g16, x, w, None, None, lib_out[1], lib_out[2], True,
+                        eps, [True, True, True])),
+                "fused_module_eager_ms": _time_ms(lambda: module_step(True)),
+                "module_chain_eager_ms": _time_ms(
+                    lambda: module_step(False)),
+            }
+            rows.append(row)
+            print(f"batch_norm {row} [{card}]", flush=True)
+            del y, y_copy, mask, mean, rstd, y_ref, mask_ref, mask_bool
+            del grads, grads_ref
+        del x, res_t
+        torch.cuda.empty_cache()
+    bad = [(r["shape"], r["relu"], r["residual"], r["out"], r["copy"],
+            r["errors"], r["mask_flips"]) for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"batch_norm: kernels disagree with their "
+                             f"plain version: {bad}")
+    return rows
+
+
+def _bn_err(got, want):
+    """Largest difference over the largest magnitude of ``want``."""
+    scale = max(want.float().abs().max().item(), 1e-30)
+    return (got.float() - want.float()).abs().max().item() / scale
 
 
 def k2_pass_sweeps(card, sweeps=3, calls=40):
@@ -934,6 +1122,7 @@ def run_training(card):
     from byol_tpu_torch.core.precision import get_policy
     from byol_tpu_torch.data import device_augment as da
     from byol_tpu_torch.data.loader import get_loader
+    from byol_tpu_torch.ops import batch_norm as bn_ops
     from byol_tpu_torch.ops import fused_augment as fg
     from byol_tpu_torch.optim.factory import LarsMomentum
     from byol_tpu_torch.optim.schedules import cosine_ema_decay
@@ -954,11 +1143,23 @@ def run_training(card):
             cfg.device, num_replicas=1)))
         t0 = time.perf_counter()
         _zero_counters()
+        bn_ops.LAUNCHES = bn_ops.UNFUSED_CUDA_CALLS = 0
         result = fit(cfg, device=torch.device("cuda"), loader=loader)
         counts = _read_counters()
+        bn_counts = (bn_ops.LAUNCHES, bn_ops.UNFUSED_CUDA_CALLS)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     steps = len(result.step_losses)
+    # a step: 53 fused forwards a view for the target and the online net,
+    # and the online net's 53 backwards a view; the heads' BatchNorms, and
+    # every eval-mode forward, on the module's own path
+    print(f"training: fused BatchNorm calls {bn_counts[0]} ({BN_PER_STEP} "
+          f"a step), BatchNorm calls on the module's own path "
+          f"{bn_counts[1]}", flush=True)
+    if bn_counts[0] != BN_PER_STEP * steps:
+        raise AssertionError(f"training: {bn_counts[0]} fused BatchNorm "
+                             f"calls in {steps} steps, want "
+                             f"{BN_PER_STEP * steps}")
     print(f"training: {steps} steps in {time.perf_counter() - t0:.1f}s "
           f"(build included), losses {result.step_losses}, launches "
           f"(flash, segment_norms, fused_apply, two_view) = {counts}",
@@ -5064,6 +5265,7 @@ def main() -> int:
     k1_rows = phase("fused_update", check_fused_update, card)
     k2_rows = phase("two_view", check_two_view, card)
     phase("two_view passes", k2_pass_sweeps, card)
+    bn_rows = phase("batch_norm", check_batch_norm, card)
     serving_launches, versus = phase("serving", run_slice, card)
     wire_launches, wire_row = phase("wire", run_wire, card)
     train_counts = phase("training", run_training, card)
@@ -5197,6 +5399,7 @@ def main() -> int:
                                      tp=tp[j]),
             "tp_launches_per_rank": [c[j] for c in tp_counts],
             **row})
+    print(json.dumps({"batch_norm": bn_rows}), flush=True)
     print(json.dumps({"input_arms": input_rows}), flush=True)
     print(json.dumps({"accum": accum_row}), flush=True)
     print(json.dumps({"observe": observe_row}), flush=True)
