@@ -15,7 +15,9 @@ same object, cycling through the batches, until ``seconds`` have passed;
 ``train_img_s`` is the images of those steps over the time from the first
 one's dispatch to the last one's completion.  With ``trace``, the last
 ``profile_steps`` steps of the window run under the profiler, after a
-synchronisation, so the traced sub-window holds exactly those steps.
+synchronisation, so the traced sub-window holds exactly those steps, and
+the host seconds a step of the steps before them (``step_s``) time the
+window's steps untraced.
 
 The inputs are the benchmark's, made from the seed: uint8 images and
 labels on the device (``distinct_batches`` batches), the view draws of
@@ -192,15 +194,16 @@ def run(conf, seed: int, seconds: float, trace: bool, device,
     while time.perf_counter() - t0 < (lead if profiled else seconds):
         one()
         steps += 1
+    with recorder.span("bench/sync"):
+        sync()
+    t_lead, lead_steps = time.perf_counter(), steps
     if profiled:
-        with recorder.span("bench/sync"):
-            sync()
         capture.start()
         for _ in range(profiled):
             one()
         steps += profiled
-    with recorder.span("bench/sync"):
-        sync()
+        with recorder.span("bench/sync"):
+            sync()
     t_end = time.perf_counter()
     if capture is not None:
         capture.stop()
@@ -213,7 +216,8 @@ def run(conf, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
     r0 = time.perf_counter()
     ref = reference_readings(conf, seed, device, data, n_check)
-    print(f"train: {steps} steps of {batch} images in {t_end - t0:.3f} s; "
+    print(f"train: {steps} steps of {batch} images in {t_end - t0:.3f} s "
+          f"({lead_steps} before the profiled ones in {t_lead - t0:.3f} s); "
           f"the reference's {n_check} steps took "
           f"{time.perf_counter() - r0:.1f} s", file=sys.stderr)
     readings = checks.train_readings(prog, ref)
@@ -229,6 +233,8 @@ def run(conf, seed: int, seconds: float, trace: bool, device,
             "memory_peak_bytes": max(peak_setup, peak_window),
             "trace": traced,
             "e2e": {"train_img_s": img_s},
-            "layer": {"img_s": img_s, "steps_traced": profiled,
+            "layer": {"step_s": ((t_lead - t0) / lead_steps if lead_steps
+                                 else None),
+                      "steps_traced": profiled,
                       "peak_window_bytes": peak_window,
                       "flat_elements": None}}

@@ -10,10 +10,13 @@
   ``cells/<cell>.json``;
 - a driver is ``drivers/<driver>.py`` (a function ``run``);
 - a per-layer metric is ``layer_metrics/<metric>.py`` (a function
-  ``read(ctx)`` that returns a number, or None where it finds nothing).
+  ``read(ctx)`` that returns a number, or None where it finds nothing);
+- the reference's encoder of a configuration's ``arch["family"]`` is
+  ``reference/families/<family>.py`` (reference/nets.py loads it).
 
-So a later change adds a cell, a configuration or a metric as new files
-and a new entry of ``BENCHMARK.json``, and edits none of these files.
+So a later change adds a cell, a configuration, an encoder family or a
+metric as new files and a new entry of ``BENCHMARK.json``, and edits
+none of these files.
 """
 from __future__ import annotations
 

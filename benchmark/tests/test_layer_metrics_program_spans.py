@@ -90,7 +90,8 @@ def _spans(rows, thread):
 
 def _ctx(spans, traced=True):
     trace = Trace(perf_start=PERF_START, window_s=3.0, busy_s=0.5,
-                  kind_s={}, kind_calls={}, gaps=[]) if traced else None
+                  launched_busy_s=0.5, kind_s={}, kind_calls={},
+                  name_s={}, name_calls={}, gaps=[]) if traced else None
     return {"out": {"setup_done": SETUP_DONE}, "trace": trace,
             "spans": spans}
 
